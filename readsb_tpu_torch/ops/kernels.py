@@ -1,0 +1,383 @@
+"""Hand-written CUDA kernels of the demod hot path, with their plain versions.
+
+Each wrapper launches its CUDA kernel (csrc/*.cu, built with nvcc for
+sm_90a into BUILD_DIR at first use and loaded with ctypes) when given
+CUDA tensors, and runs its plain PyTorch version only when given CPU
+tensors.  A failed build or launch raises.  `<wrapper>.launches` counts
+the kernel launches, so a run can show that the main path used them.
+
+  dense_scan_uc8     raw UC8 words -> corrbits, slicer sign planes packed
+                     32 samples/word, split hi/lo prefix sums of mag^2
+  extract_syndromes  candidate win rows -> CRC-24 syndromes, message
+                     bytes and correlation bits for 5 phases
+
+The output contracts are those of readsb_tpu.ops.pallas_kernels
+dense_scan_uc8_pallas and extract_syndromes_pallas.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+from .. import BUILD_DIR
+from . import crc as crc_ops
+from .convert import uc8_lut_np
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+SOURCES = ("dense_scan_uc8", "extract_syndromes")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+TILE = 65536  # dense-scan length granule (the Pallas kernel's tile)
+DENSE_BLOCK = 1024  # samples per CUDA block of the dense scan (csrc)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+        if os.path.exists(cand):
+            path = cand
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build(force: bool = False) -> dict[str, str]:
+    """Compile every csrc/*.cu into BUILD_DIR, one nvcc per source, all
+    started together.  Returns {name: ptxas report}; raises on failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in SOURCES:
+        src = os.path.join(CSRC, name + ".cu")
+        so = os.path.join(BUILD_DIR, f"lib{name}.so")
+        if not force and os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs[name] = (
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ),
+            tmp, so,
+        )
+    reports = {}
+    failed = []
+    try:
+        for name, (proc, tmp, so) in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            reports[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            else:
+                os.replace(tmp, so)
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.poll() is None:  # a timeout above: stop every compiler started
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lock:
+        if name not in _libs:
+            build()
+            lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
+            lib.rtpu_cuda_error_string.restype = ctypes.c_char_p
+            lib.rtpu_cuda_error_string.argtypes = [ctypes.c_int]
+            if name == "dense_scan_uc8":
+                lib.dense_scan_uc8.restype = ctypes.c_int
+                lib.dense_scan_uc8.argtypes = [
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ]
+            else:
+                lib.extract_syndromes_set_tables.restype = ctypes.c_int
+                lib.extract_syndromes_set_tables.argtypes = [ctypes.c_void_p] * 3
+                lib.extract_syndromes.restype = ctypes.c_int
+                lib.extract_syndromes.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_void_p, ctypes.c_void_p,
+                ]
+                tap, s112, s56 = extract_tables_np()
+                _check(lib, lib.extract_syndromes_set_tables(
+                    tap.ctypes.data, s112.ctypes.data, s56.ctypes.data
+                ), "extract_syndromes_set_tables")
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.rtpu_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (the kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# Shared integer helpers
+# ---------------------------------------------------------------------------
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def pack_plane_words(planes: torch.Tensor) -> torch.Tensor:
+    """bool[P, L] -> int32[P, L // 32] little-endian bit packing (bit j of
+    word w = plane value at sample 32*w + j; bit 31 makes the word negative)."""
+    nplane, length = planes.shape
+    nwords = length // 32
+    b = planes[:, : nwords * 32].reshape(nplane, nwords, 32).to(torch.int64)
+    sh = torch.arange(32, dtype=torch.int64, device=planes.device)
+    return wrap_i32((b << sh).sum(-1))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: fused UC8 convert + dense scan
+# ---------------------------------------------------------------------------
+
+
+def dense_from_mag(m: torch.Tensor, threshold: int, tail: int):
+    """Dense scan of int32 magnitudes m[n] (n % 32 == 0); samples read past
+    the end have magnitude `tail`.  Returns (corrbits int8[n], pwords
+    int32[5, n // 32], cs_hi int32[n], cs_lo int32[n]):
+
+      corrbits  bit0..2 = correlation A/B/C fired, bit3 = candidate
+                (pre-check AND any correlation; demod_2400.c:311-378)
+      pwords    five slicer sign planes, 32 samples per word
+      cs_hi/lo  inclusive prefix sums of (mag^2 >> 16) / (mag^2 & 0xffff),
+                wraparound int32
+    """
+    n = m.shape[0]
+    if n % 32:
+        raise ValueError(f"dense scan length {n} is not a multiple of 32")
+    mext = torch.cat([m, torch.full((19,), tail, dtype=torch.int32, device=m.device)])
+
+    def at(i):
+        return mext[i : i + n]
+
+    p1, p2, p3, p4, p5 = at(1), at(2), at(3), at(4), at(5)
+    p7, p8, p9, p10, p11 = at(7), at(8), at(9), at(10), at(11)
+    p12, p14, p15, p16, p17, p18 = at(12), at(14), at(15), at(16), at(17), at(18)
+    pre = (p1 > p7) & (p12 > p14) & (p12 > p15)
+    ref_level = ((p5 + p8 + p16 + p17 + p18) * int(threshold)) >> 5
+    d23 = p2 - p3
+    s14 = p1 + p4
+    d1011 = p10 - p11
+    common = s14 - d23 + p9 + p12
+    corr_a = (common - d1011) >= ref_level  # phases 4, 5
+    corr_b = (common + d1011) >= ref_level  # phases 6, 7
+    corr_c = (s14 + 2 * d23 + d1011 + p12) >= ref_level  # phase 8
+    cand = pre & (corr_a | corr_b | corr_c)
+    corrbits = (
+        corr_a.to(torch.int8)
+        | (corr_b.to(torch.int8) << 1)
+        | (corr_c.to(torch.int8) << 2)
+        | (cand.to(torch.int8) << 3)
+    )
+
+    s0, s1, s2, s3 = at(0), p1, p2, p3
+    planes = torch.stack(
+        [
+            (18 * s0 - 15 * s1 - 3 * s2) > 0,
+            (14 * s0 - 5 * s1 - 9 * s2) > 0,
+            (16 * s0 + 5 * s1 - 20 * s2) > 0,
+            (7 * s0 + 11 * s1 - 18 * s2) > 0,
+            (4 * s0 + 15 * s1 - 20 * s2 + s3) > 0,
+        ]
+    )
+    pwords = pack_plane_words(planes)
+
+    sq = m.to(torch.int64) * m.to(torch.int64)
+    cs_hi = wrap_i32(torch.cumsum(sq >> 16, 0))
+    cs_lo = wrap_i32(torch.cumsum(sq & 0xFFFF, 0))
+    return corrbits, pwords, cs_hi, cs_lo
+
+
+def dense_scan_uc8_plain(words: torch.Tensor, threshold: int):
+    """Plain PyTorch version of dense_scan_uc8 (same contract)."""
+    w = words.to(torch.int64)
+    lut = torch.from_numpy(uc8_lut_np().astype(np.int32)).to(words.device)
+    m = lut[(w & 0xFF) * 256 + (w >> 8)]
+    # a zero word past the end converts to full scale, as in the Pallas kernel
+    return dense_from_mag(m, threshold, tail=int(uc8_lut_np()[0]))
+
+
+def dense_scan_uc8(words: torch.Tensor, threshold: int):
+    """Fused UC8 convert + dense scan.
+
+    words: uint16[n], one interleaved uc8 I/Q pair per element (I in the
+    low byte), n % 65536 == 0.  Samples past the end read as zero words,
+    which convert to full-scale magnitudes: callers pad with >= 512 words
+    beyond every candidate window and mask candidates to scan_len.
+    Returns (corrbits int8[n], pwords int32[5, n // 32], cs_hi int32[n],
+    cs_lo int32[n]) as in dense_from_mag.
+    """
+    if words.dtype != torch.uint16 or words.dim() != 1:
+        raise ValueError(f"words must be 1-D uint16, got {words.dtype} {tuple(words.shape)}")
+    n = words.shape[0]
+    if n == 0 or n % TILE:
+        raise ValueError(f"words length {n} is not a positive multiple of {TILE}")
+    if _on_cpu(words):
+        return dense_scan_uc8_plain(words, threshold)
+    words = words.contiguous()
+    dev = words.device
+    corr = torch.empty(n, dtype=torch.int8, device=dev)
+    pwords = torch.empty((5, n // 32), dtype=torch.int32, device=dev)
+    cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
+    cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * (n // DENSE_BLOCK), dtype=torch.int32, device=dev)
+    lib = _lib("dense_scan_uc8")
+    rc = lib.dense_scan_uc8(
+        words.data_ptr(), n, int(threshold),
+        corr.data_ptr(), pwords.data_ptr(), cs_hi.data_ptr(), cs_lo.data_ptr(),
+        scratch.data_ptr(), _stream(words),
+    )
+    _check(lib, rc, "dense_scan_uc8")
+    dense_scan_uc8.launches += 1
+    return corr, pwords, cs_hi, cs_lo
+
+
+dense_scan_uc8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: per-candidate extraction + syndromes
+# ---------------------------------------------------------------------------
+
+WIN_PLANE_WORDS = 19  # words per slicer plane in a win row (ops/demod.py)
+WIN_CORR_BASE = 95  # first correlation-bitplane lane of a win row
+
+
+@functools.lru_cache(maxsize=None)
+def extract_tables_np() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(tap int32[560], syn112 uint32[112], syn56 uint32[56]).
+
+    tap[p * 112 + b] = (kid << 9) | aoff for slicer bit b of phase p
+    (ops/demod.lattice_tables); syn* are the per-bit CRC-24 syndromes,
+    the rows of crc.syndrome_matrix(112) and (56) packed MSB first.
+    """
+    from .demod import lattice_tables
+
+    aoff, kid = lattice_tables()
+    tap = ((kid.astype(np.int32) << 9) | aoff.astype(np.int32)).reshape(-1)
+    s112 = crc_ops.single_bit_syndromes(112).astype(np.uint32)
+    s56 = crc_ops.single_bit_syndromes(56).astype(np.uint32)
+    return np.ascontiguousarray(tap), np.ascontiguousarray(s112), np.ascontiguousarray(s56)
+
+
+def extract_syndromes_plain(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of extract_syndromes (same contract).
+
+    Bits are picked from the aligned window with integer ops; syndromes
+    and message bytes come from one float32 product with
+    demod._combined_matrix, exact because every entry and every sum is an
+    integer below 2^8 (so TF32 would be exact too).
+    """
+    from .demod import _combined_matrix, lattice_tables
+
+    dev = rows.device
+    k = rows.shape[0]
+    r64 = rows.to(torch.int64) & 0xFFFFFFFF
+    s = offsets.to(torch.int64) & 255
+    wrot = s >> 5
+    sb = (s & 31)[:, None, None]
+
+    base = torch.arange(5, device=dev)[:, None] * WIN_PLANE_WORDS + torch.arange(12, device=dev)
+    idx = (base[None] + wrot[:, None, None]).reshape(k, 60)
+    sw_pre = torch.gather(r64, 1, idx).reshape(k, 5, 12)
+    lo = sw_pre[:, :, :11] >> sb
+    hi = (sw_pre[:, :, 1:] & ((1 << sb) - 1)) << (32 - sb)  # 0 when sb == 0
+    sw = (lo | hi).reshape(k, 55)
+
+    aoff, kid = lattice_tables()
+    word = torch.from_numpy((kid * 11 + (aoff >> 5)).reshape(-1).astype(np.int64)).to(dev)
+    shift = torch.from_numpy((aoff & 31).reshape(-1).astype(np.int64)).to(dev)
+    bits = (sw[:, word] >> shift) & 1  # (K, 560)
+
+    comb = torch.from_numpy(_combined_matrix()).to(dev)
+    counts = (bits.to(torch.float32).reshape(k * 5, 112) @ comb).to(torch.int64)
+    counts = counts.reshape(k, 5, 62)
+    w24 = 1 << torch.arange(23, -1, -1, device=dev)
+    syn112 = ((counts[:, :, 0:24] & 1) * w24).sum(-1)
+    syn56 = ((counts[:, :, 24:48] & 1) * w24).sum(-1)
+    msg = counts[:, :, 48:62].reshape(k, 70)
+
+    cidx = WIN_CORR_BASE + torch.arange(3, device=dev)[None, :] * 8 + wrot[:, None]
+    corr = (torch.gather(r64, 1, cidx) >> sb[:, :, 0]) & 1
+
+    out = torch.cat(
+        [syn112, syn56, msg, corr, torch.zeros((k, 128 - 83), dtype=torch.int64, device=dev)],
+        dim=1,
+    )
+    return out.to(torch.int32)
+
+
+def extract_syndromes(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """(K,128) int32 win rows + (K,) int32 offsets -> (K,128) int32.
+
+    Per candidate the win row is aligned by offset & 255 and 5 phases x
+    112 slicer bits are unpacked.  Lanes 0:5 syn112 per phase, 5:10 syn56
+    (CRC-24 over the first 56 bits), 10:80 message bytes (phase-major, 14
+    per phase), 80:83 correlation-lane bits, the rest 0.  Any K.
+    """
+    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != 128:
+        raise ValueError(f"rows must be int32[K, 128], got {rows.dtype} {tuple(rows.shape)}")
+    k = rows.shape[0]
+    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (k,):
+        raise ValueError(f"offsets must be int32[{k}], got {offsets.dtype} {tuple(offsets.shape)}")
+    if offsets.device != rows.device:
+        raise ValueError("rows and offsets must be on one device")
+    if _on_cpu(rows):
+        return extract_syndromes_plain(rows, offsets)
+    rows = rows.contiguous()
+    offsets = offsets.contiguous()
+    out = torch.empty((k, 128), dtype=torch.int32, device=rows.device)
+    if k == 0:
+        return out
+    lib = _lib("extract_syndromes")
+    rc = lib.extract_syndromes(
+        rows.data_ptr(), offsets.data_ptr(), k, out.data_ptr(), _stream(rows)
+    )
+    _check(lib, rc, "extract_syndromes")
+    extract_syndromes.launches += 1
+    return out
+
+
+extract_syndromes.launches = 0
