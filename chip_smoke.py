@@ -2,13 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from readsb_tpu_torch/csrc with nvcc,
-drives the main path (raw UC8 IQ -> MultiDemodulator(64) -> frames) at
-full width, holds every kernel against its plain PyTorch version on the
-card, holds the card's frames and stats against the port's own CPU run,
-and prints per-kernel times and bounds.  The last line is
-{"ok": true, "device": {...}}; any failure exits non-zero before it.
-Needs a CUDA device; imports nothing of JAX.
+Builds the port's four CUDA kernels from readsb_tpu_torch/csrc with nvcc
+and drives three paths on the card, each with the launch counts set to 0
+just before and read just after:
+
+  raw route        raw UC8 IQ -> MultiDemodulator(64) -> frames
+  magnitude route  the same traffic as sc16 -> MultiDemodulator(64, fmt="sc16")
+  ungated route    uc8 with Mode-S frames and Mode A/C replies ->
+                   Demodulator(fmt="uc8", modeac=True)
+
+It holds every kernel against its plain PyTorch version on the card at
+the shapes these paths give it, holds the card's frames, stats, levels
+and Mode A/C messages against the port's own CPU run, and prints
+per-kernel times and bounds.  The last line is {"ok": true, "device":
+{...}}; any failure exits non-zero before it.  Needs a CUDA device;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -25,8 +33,8 @@ from readsb_tpu_torch import pipeline
 from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT
 from readsb_tpu_torch.ops import demod as demod_ops
 from readsb_tpu_torch.ops import kernels
-from readsb_tpu_torch.ops.convert import uc8_lut_np
-from readsb_tpu_torch.synth import build_standard_capture
+from readsb_tpu_torch.ops.convert import mag_uc8_words, uc8_lut_np
+from readsb_tpu_torch.synth import build_standard_capture, quantize_sc16, quantize_uc8
 
 N_CHAN = 64  # the benchmark width: 64 channels x 131072 UC8 samples per dispatch
 DISPATCHES = 2  # so the carried overlap crosses a superblock
@@ -40,6 +48,11 @@ DENSE_OPS_PER_SAMPLE = 85
 # per candidate: 5 phases x 112 bits x (tap, funnel shift, shift, and, xor,
 # byte shift), plus alignment and correlation bits
 EXTRACT_OPS_PER_CAND = 5 * 112 * 6 + 50
+# per sample of the uc8 magnitude: two table reads, add, min, sqrt, scale,
+# add, cast, pack
+MAG_OPS_PER_SAMPLE = 8
+MODEAC_CODES = (0x1200, 0x7700, 0x0030, 0x2644)
+KERNEL_NAMES = ("dense_scan_uc8", "extract_syndromes", "mag_uc8", "dense_scan")
 
 DEV = torch.device("cuda")
 
@@ -61,8 +74,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 15, warm: int = 2) -> float:
-    """Median over `reps` launches, each timed with CUDA events."""
+def time_ms(fn, reps: int = 15, warm: int = 2, inner: int = 1) -> float:
+    """Median over `reps` timings with CUDA events of `inner` back-to-back
+    calls, per call.  inner > 1 keeps the device fed where one call's work
+    is shorter than its enqueue on the host."""
     for _ in range(warm):
         fn()
     times = []
@@ -70,11 +85,29 @@ def time_ms(fn, reps: int = 15, warm: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> float:
+    """Device time per call of the kernels whose names contain one of
+    `names`, from torch.profiler: what the card spends, without the host's
+    enqueue."""
+    fn()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.key for n in names)
+    )
+    return total / reps / 1e3
 
 
 def max_abs_err(xs, ys) -> int:
@@ -89,11 +122,41 @@ def stats_key(s):
     return (s.preambles, s.rejected_bad, s.rejected_unknown_icao, list(s.accepted))
 
 
-def workload(n_blocks: int, seed: int = 3) -> tuple[np.ndarray, list[dict]]:
-    """bench.py's traffic: 8 aircraft, seed 3, as UC8 bytes of n_blocks blocks."""
+def workload(n_blocks: int, seed: int = 3) -> tuple[np.ndarray, np.ndarray, list[dict]]:
+    """bench.py's traffic: 8 aircraft, seed 3, n_blocks blocks of one
+    rendering, as UC8 bytes and as sc16 bytes."""
     total = n_blocks * BLOCK_SAMPLES
     cap = build_standard_capture(duration_s=total / 2.4e6 + 0.1, n_aircraft=8, seed=seed)
-    return cap.render_uc8()[: total * 2], cap.truth
+    iq = cap.render_iq()[:total]
+    return quantize_uc8(iq), quantize_sc16(iq).view(np.uint8), cap.truth
+
+
+def reset_counts() -> None:
+    for name in KERNEL_NAMES:
+        getattr(kernels, name).launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: getattr(kernels, name).launches for name in KERNEL_NAMES}
+
+
+def run_multi(m, chunks) -> list[list]:
+    got = m.feed(chunks)
+    return [g + t for g, t in zip(got, m.flush())]
+
+
+def host_median_s(fn, make=lambda: None, reps: int = 3) -> float:
+    """Median host-clock seconds of fn(make()), device work included;
+    make() (building a demodulator) is not timed."""
+    times = []
+    for _ in range(reps):
+        arg = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
 
 
 def recovered(truth, frames) -> tuple[int, int]:
@@ -145,42 +208,36 @@ def main() -> None:
 
     # --- workload -------------------------------------------------------------
     t0 = time.perf_counter()
-    raw, truth = workload(N_CHAN * DISPATCHES)
+    raw, raw16, truth = workload(N_CHAN * DISPATCHES)
     per_chan = DISPATCHES * BLOCK_SAMPLES * 2
     chunks = [bytes(raw[c * per_chan : (c + 1) * per_chan]) for c in range(N_CHAN)]
+    chunks16 = [bytes(raw16[2 * c * per_chan : 2 * (c + 1) * per_chan]) for c in range(N_CHAN)]
     log(f"workload: {N_CHAN} channels x {DISPATCHES} x {BLOCK_SAMPLES} UC8 samples "
         f"({len(truth)} truth frames) in {time.perf_counter() - t0:.1f} s")
 
     # --- main path on the card, counted ---------------------------------------
     multi = pipeline.MultiDemodulator(N_CHAN, blocks_per_batch=1, use_native=True)
-    kernels.dense_scan_uc8.launches = 0
-    kernels.extract_syndromes.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = multi.feed(chunks)
-    tail = multi.flush()
+    card_frames = run_multi(multi, chunks)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
-    launches = {
-        "dense_scan_uc8": kernels.dense_scan_uc8.launches,
-        "extract_syndromes": kernels.extract_syndromes.launches,
-    }
+    launches = read_counts()
     log(f"main path: MultiDemodulator({N_CHAN}) k={multi.k} k2={multi.gate_k2} "
         f"launches={launches} in {t_main:.3f} s (first run, builds included)")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
-    card_frames = [g + t for g, t in zip(got, tail)]
+    for name in ("dense_scan_uc8", "extract_syndromes"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the main path")
     n_frames = sum(len(f) for f in card_frames)
     check(n_frames > 0, "main path decoded no frames")
 
     # --- the port's CPU run of the same capture -------------------------------
     t0 = time.perf_counter()
     ref = pipeline.MultiDemodulator(N_CHAN, blocks_per_batch=1, use_native=True, device="cpu")
-    rgot = ref.feed(chunks)
-    rtail = ref.flush()
+    ref_frames = run_multi(ref, chunks)
     log(f"CPU reference run in {time.perf_counter() - t0:.1f} s")
     for c in range(N_CHAN):
-        check(frame_key(card_frames[c]) == frame_key(rgot[c] + rtail[c]),
+        check(frame_key(card_frames[c]) == frame_key(ref_frames[c]),
               f"channel {c}: card frames differ from the CPU run")
         check(stats_key(multi.channel_stats(c)) == stats_key(ref.channel_stats(c)),
               f"channel {c}: card stats differ from the CPU run")
@@ -203,11 +260,87 @@ def main() -> None:
     log(f"Demodulator(blocks_per_batch=4): {len(f_card)} frames == CPU run; "
         f"truth recovered {rec1}/{tot1}")
 
+    # --- magnitude route at full width: the same traffic as sc16, counted -----
+    multi16 = pipeline.MultiDemodulator(N_CHAN, fmt="sc16", blocks_per_batch=1, use_native=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card16 = run_multi(multi16, chunks16)
+    torch.cuda.synchronize()
+    t_main16 = time.perf_counter() - t0
+    launches16 = read_counts()
+    log(f"magnitude route: MultiDemodulator({N_CHAN}, fmt='sc16') k={multi16.k} "
+        f"k2={multi16.gate_k2} launches={launches16} in {t_main16:.3f} s")
+    for name in ("dense_scan", "extract_syndromes"):
+        check(launches16[name] > 0, f"kernel {name} was not launched by the magnitude route")
+    check(launches16["dense_scan_uc8"] == 0, "the magnitude route ran the raw-route kernel")
+    t0 = time.perf_counter()
+    ref16 = pipeline.MultiDemodulator(
+        N_CHAN, fmt="sc16", blocks_per_batch=1, use_native=True, device="cpu"
+    )
+    ref16_frames = run_multi(ref16, chunks16)
+    log(f"CPU reference run (sc16) in {time.perf_counter() - t0:.1f} s")
+    for c in range(N_CHAN):
+        check(frame_key(card16[c]) == frame_key(ref16_frames[c]),
+              f"sc16 channel {c}: card frames differ from the CPU run")
+        check(stats_key(multi16.channel_stats(c)) == stats_key(ref16.channel_stats(c)),
+              f"sc16 channel {c}: card stats differ from the CPU run")
+    check(bool((multi16.mean_level == ref16.mean_level).all()
+               and (multi16.mean_power == ref16.mean_power).all()),
+          "sc16: mean_level / mean_power differ from the CPU run")
+    check(bool((multi16.mean_level > 0).all()), "sc16: a channel's mean_level is 0")
+    n16 = sum(len(f) for f in card16)
+    rec16, tot16 = recovered(truth, [f for fr in card16 for f in fr])
+    log(f"sc16 frames: {n16} on the card == CPU run, per channel, with stats and levels; "
+        f"truth recovered {rec16}/{tot16}")
+    check(rec16 >= 0.9 * tot16, f"sc16: only {rec16}/{tot16} truth messages decoded")
+
+    # --- ungated route with Mode A/C: 1 s of Mode-S frames and replies --------
+    cap_ac = build_standard_capture(duration_s=1.0, n_aircraft=4, seed=7)
+    t_replies = np.arange(0.015, 0.98, 0.0137)
+    for i, t in enumerate(t_replies):
+        # near-zero sub-sample phase: the reference's clock-phase heuristic
+        # (demod_2400.c:644-650) rejects unlucky phases
+        cap_ac.add_modeac(MODEAC_CODES[i % 4], float(t), amplitude=0.5, phase=0.05)
+    raw_ac = bytes(cap_ac.render_uc8())
+
+    def run_ac(device):
+        d = pipeline.Demodulator(fmt="uc8", modeac=True, blocks_per_batch=4, use_native=True,
+                                 device=device)
+        return d, d.feed(raw_ac) + d.flush()
+
+    reset_counts()
+    d_ac, f_ac = run_ac(DEV)
+    torch.cuda.synchronize()
+    launches_ac = read_counts()
+    for name in ("mag_uc8", "dense_scan", "extract_syndromes"):
+        check(launches_ac[name] > 0, f"kernel {name} was not launched by the ungated route")
+    r_ac, rf_ac = run_ac("cpu")
+    check(frame_key(f_ac) == frame_key(rf_ac), "ungated route: card frames differ from CPU run")
+    check(stats_key(d_ac.stats) == stats_key(r_ac.stats), "ungated route: stats differ")
+    ac_key = [(m.squawk_hex, m.timestamp, m.addr, m.baro_alt) for m in d_ac.modeac_msgs]
+    check(ac_key == [(m.squawk_hex, m.timestamp, m.addr, m.baro_alt) for m in r_ac.modeac_msgs],
+          "ungated route: Mode A/C messages differ from the CPU run")
+    check(d_ac.stats_modeac == r_ac.stats_modeac == len(ac_key), "stats_modeac differs")
+    check((d_ac.mean_level, d_ac.mean_power, d_ac.k, d_ac.modeac_k)
+          == (r_ac.mean_level, r_ac.mean_power, r_ac.k, r_ac.modeac_k),
+          "ungated route: levels or capacities differ from the CPU run")
+    rec_ac, tot_ac = recovered([t for t in cap_ac.truth if "hex" in t], f_ac)
+    check(rec_ac >= 0.9 * tot_ac, f"ungated route: only {rec_ac}/{tot_ac} Mode-S messages")
+    check({m.squawk_hex for m in d_ac.modeac_msgs} == set(MODEAC_CODES),
+          "ungated route: not every Mode A code was decoded")
+    check(len(ac_key) >= 0.5 * len(t_replies),
+          f"ungated route: only {len(ac_key)}/{len(t_replies)} Mode A/C replies")
+    log(f"ungated route: Demodulator(modeac=True, blocks_per_batch=4) k={d_ac.k} "
+        f"modeac_k={d_ac.modeac_k} launches={launches_ac}; {len(f_ac)} frames "
+        f"({rec_ac}/{tot_ac} truth) and {len(ac_key)}/{len(t_replies)} Mode A/C replies "
+        f"== CPU run")
+
     # --- kernels against their plain versions at the main path's shapes -------
     first = np.stack([np.frombuffer(ch, dtype="<u2", count=BLOCK_SAMPLES) for ch in chunks])
     words = torch.from_numpy(first.copy()).to(DEV)
     overlap = torch.full((N_CHAN, 326), pipeline.SILENT_WORD, dtype=torch.uint16, device=DEV)
-    buf = pipeline.multi_raw_buffer(words, overlap, multi.seg_stride, multi.seg_valid)
+    buf = pipeline.multi_buffer(words, overlap, multi.seg_stride, multi.seg_valid)
     bufp = demod_ops.pad_raw_words(buf)
     thr = PREAMBLE_THRESHOLD_DEFAULT
     n = bufp.shape[0]
@@ -225,6 +358,29 @@ def main() -> None:
     check(err_ex == 0, f"extract_syndromes differs from its plain version (max {err_ex})")
     log(f"kernels == plain versions at n={n} samples, K={rows.shape[0]} rows")
 
+    # kernel #4 at the magnitude route's shape: 64 channels of sc16 magnitudes
+    first16 = np.stack([np.frombuffer(ch, dtype=np.uint8, count=BLOCK_SAMPLES * 4)
+                        for ch in chunks16])
+    mags = pipeline._to_mag(first16.reshape(-1), "sc16", DEV).reshape(N_CHAN, BLOCK_SAMPLES)
+    overlap_mag = torch.zeros((N_CHAN, 326), dtype=torch.uint16, device=DEV)
+    magp = demod_ops.pad_mag(
+        pipeline.multi_buffer(mags, overlap_mag, multi16.seg_stride, multi16.seg_valid)
+    )
+    check(magp.shape[0] == n, f"magnitude buffer of {magp.shape[0]} samples, expected {n}")
+    densem_k = kernels.dense_scan(magp, thr)
+    densem_p = kernels.dense_scan_plain(magp, thr)
+    err_densem = max_abs_err(densem_k, densem_p)
+    check(err_densem == 0, f"dense_scan differs from its plain version (max {err_densem})")
+
+    # kernel #3 at the ungated route's superblock and at 64 channels' words
+    words_flat = words.reshape(-1)
+    err_mag = 0
+    for w in (words_flat[: 4 * BLOCK_SAMPLES], words_flat, words_flat[3:70004]):
+        err_mag = max(err_mag, max_abs_err([kernels.mag_uc8(w)], [mag_uc8_words(w)]))
+    check(err_mag == 0, f"mag_uc8 differs from its plain version (max {err_mag})")
+    log(f"dense_scan == plain at n={n}; mag_uc8 == LUT gather at N={4 * BLOCK_SAMPLES}, "
+        f"N={words_flat.shape[0]} and an unaligned N=70001")
+
     # every (I, Q) pair through the dense scan: mag^2 from prefix-sum steps
     ii, qq = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
     pairs = torch.from_numpy((ii.ravel() | (qq.ravel() << 8)).astype(np.uint16)).to(DEV)
@@ -232,16 +388,44 @@ def main() -> None:
     sq = ((prefix_steps(hi) << 16) + prefix_steps(lo)).cpu().numpy()
     lut = uc8_lut_np().astype(np.int64)[ii.ravel() * 256 + qq.ravel()]
     check(bool((sq == lut * lut).all()), "in-kernel magnitude differs from the LUT")
-    log("magnitude: all 65536 (I, Q) pairs equal the LUT")
+    mag_pairs = kernels.mag_uc8(pairs).cpu().numpy().astype(np.int64)
+    check(bool((mag_pairs == lut).all()), "mag_uc8 differs from the LUT on some (I, Q) pair")
+    log("magnitude: all 65536 (I, Q) pairs equal the LUT, in dense_scan_uc8 and in mag_uc8")
 
     # --- times ----------------------------------------------------------------
     ms_dense = time_ms(lambda: kernels.dense_scan_uc8(bufp, thr))
     plain_dense = time_ms(lambda: kernels.dense_scan_uc8_plain(bufp, thr), reps=10)
     ms_ex = time_ms(lambda: kernels.extract_syndromes(rows, offsets))
     plain_ex = time_ms(lambda: kernels.extract_syndromes_plain(rows, offsets), reps=10)
+    ms_densem = time_ms(lambda: kernels.dense_scan(magp, thr))
+    plain_densem = time_ms(lambda: kernels.dense_scan_plain(magp, thr), reps=10)
+    n_mag = words_flat.shape[0]
+    ms_mag = time_ms(lambda: kernels.mag_uc8(words_flat), inner=20)
+    ms_mag_sb = time_ms(lambda: kernels.mag_uc8(words_flat[: 4 * BLOCK_SAMPLES]), inner=20)
+    dev_mag = device_ms(lambda: kernels.mag_uc8(words_flat), ("mag_uc8_kernel",))
+    dev_mag_sb = device_ms(
+        lambda: kernels.mag_uc8(words_flat[: 4 * BLOCK_SAMPLES]), ("mag_uc8_kernel",)
+    )
+    dev_densem = device_ms(
+        lambda: kernels.dense_scan(magp, thr), ("dense_main", "block_sums", "scan_totals")
+    )
+    dev_dense = device_ms(
+        lambda: kernels.dense_scan_uc8(bufp, thr), ("dense_main", "block_sums", "scan_totals")
+    )
+    # the plain version and the library call are the same thing here: one
+    # LUT gather; the library call is timed with its index already built
+    plain_mag = time_ms(lambda: mag_uc8_words(words_flat), reps=10)
+    lut_dev = torch.from_numpy(uc8_lut_np().view(np.int16)).to(DEV)
+    w64 = words_flat.to(torch.int64)
+    lut_idx = (w64 & 0xFF) * 256 + (w64 >> 8)
+    check(max_abs_err([lut_dev[lut_idx].to(torch.int32) & 0xFFFF],
+                      [kernels.mag_uc8(words_flat)]) == 0, "the LUT gather differs from mag_uc8")
+    lib_mag = time_ms(lambda: lut_dev[lut_idx], inner=20)
+    del w64
     k_rows = rows.shape[0]
     dense_bytes = n * 2 + n * 1 + 5 * (n // 32) * 4 + 2 * n * 4
     ex_bytes = k_rows * (128 * 4 + 4 + 128 * 4)
+    mag_bytes = n_mag * 4
 
     def bound(nbytes: int, ops: int) -> tuple[float, str]:
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -250,12 +434,23 @@ def main() -> None:
 
     b_dense, by_dense = bound(dense_bytes, n * DENSE_OPS_PER_SAMPLE)
     b_ex, by_ex = bound(ex_bytes, k_rows * EXTRACT_OPS_PER_CAND)
+    b_mag, by_mag = bound(mag_bytes, n_mag * MAG_OPS_PER_SAMPLE)
     for name, ms, pms, b, nbytes in (
         ("dense_scan_uc8", ms_dense, plain_dense, b_dense, dense_bytes),
         ("extract_syndromes", ms_ex, plain_ex, b_ex, ex_bytes),
+        ("mag_uc8", ms_mag, plain_mag, b_mag, mag_bytes),
+        ("dense_scan", ms_densem, plain_densem, b_dense, dense_bytes),
     ):
         log(f"{name}: {ms:.4f} ms (plain {pms:.3f} ms, bound {b:.4f} ms for "
             f"{nbytes / 1e6:.1f} MB, {b / ms * 100:.1f}% of the bound) on {card}")
+
+    log(f"mag_uc8 at N={4 * BLOCK_SAMPLES} (one ungated superblock): {ms_mag_sb:.4f} ms; "
+        f"one LUT gather lut[idx] at N={n_mag}: {lib_mag:.4f} ms on {card}")
+    log(f"device time alone (torch.profiler): mag_uc8 {dev_mag:.4f} ms at N={n_mag}, "
+        f"{dev_mag_sb:.4f} ms at N={4 * BLOCK_SAMPLES}; dense_scan {dev_densem:.4f} ms, "
+        f"dense_scan_uc8 {dev_dense:.4f} ms (three kernels each) on {card}")
+    log(f"dense_scan / dense_scan_uc8 = {ms_densem / ms_dense:.3f} by events, "
+        f"{dev_densem / dev_dense:.3f} by device time (same bytes, no convert)")
 
     # --- end to end -----------------------------------------------------------
     def dispatch():
@@ -292,6 +487,52 @@ def main() -> None:
         f"finalize): {t_feed * 1e3:.1f} ms = {DISPATCHES * samples / t_feed / 1e6:.1f} MS/s "
         f"aggregate (median of 3) on {card}")
 
+    # the magnitude route: one dispatch from pre-staged magnitudes, and feed()
+    def dispatch16():
+        return pipeline._demod_and_gate_multi(
+            mags, overlap_mag, multi16.seg_valid, thr, multi16.mirror.tbl,
+            k=multi16.k, scan_len=multi16.scan_len, l=multi16.compact_l, k2=multi16.gate_k2,
+            nfix=multi16.nfix, fix_df=multi16.fix_df, reset_every=multi16.block_samples,
+            seg_stride=multi16.seg_stride, seg_valid=multi16.seg_valid,
+            keep_l=multi16.gate_keep_l,
+        )
+
+    ms_dispatch16 = time_ms(dispatch16, reps=10)
+    ms_tomag16 = time_ms(lambda: pipeline._to_mag(first16.reshape(-1), "sc16", DEV), reps=5)
+
+    def make16():
+        m2 = pipeline.MultiDemodulator(N_CHAN, fmt="sc16", blocks_per_batch=1, use_native=True)
+        # the capacities the counted run escalated to, so no dispatch is redone
+        m2.k, m2.compact_l = multi16.k, multi16.compact_l
+        m2.gate_k2, m2.gate_keep_l = multi16.gate_k2, multi16.gate_keep_l
+        return m2
+
+    t_feed16 = host_median_s(lambda m2: m2.feed(chunks16), make16)
+    t_tomag16 = host_median_s(lambda _: pipeline._to_mag(first16.reshape(-1), "sc16", DEV))
+    t_stack16 = host_median_s(lambda _: np.stack(
+        [np.frombuffer(p, dtype=np.uint8, count=BLOCK_SAMPLES * 4) for p in chunks16]))
+    log(f"sc16: one dispatch (device, pre-staged magnitudes): {ms_dispatch16:.3f} ms = "
+        f"{samples / ms_dispatch16 / 1e3:.1f} MS/s aggregate; upload + convert of one "
+        f"superblock (33.6 MB of sc16): {ms_tomag16:.3f} ms on {card}")
+    log(f"sc16: feed() of {DISPATCHES} superblocks: {t_feed16 * 1e3:.1f} ms = "
+        f"{DISPATCHES * samples / t_feed16 / 1e6:.1f} MS/s aggregate (median of 3); of it per "
+        f"superblock on the host clock: stacking the channels' bytes {t_stack16 * 1e3:.1f} ms, "
+        f"upload + convert {t_tomag16 * 1e3:.1f} ms on {card}")
+
+    # the ungated route: one superblock of 4 blocks, all K rows read back
+    sb_bytes = 4 * BLOCK_SAMPLES * 2
+
+    def make_ungated():
+        d = pipeline.Demodulator(fmt="uc8", modeac=True, blocks_per_batch=4, use_native=True)
+        d.k, d.compact_l, d.modeac_k = d_ac.k, d_ac.compact_l, d_ac.modeac_k
+        return d
+
+    t_ungated = host_median_s(lambda d: d.feed(raw_ac[:sb_bytes]), make_ungated)
+    log(f"ungated + Mode A/C: one superblock of {4 * BLOCK_SAMPLES} samples (upload, "
+        f"mag_uc8, Mode A/C pass, demod_block, readback of K={d_ac.k} rows, host finalize): "
+        f"{t_ungated * 1e3:.1f} ms = {4 * BLOCK_SAMPLES / t_ungated / 1e6:.1f} MS/s "
+        f"(median of 3) on {card}")
+
     print(json.dumps({"kernels": [
         {
             "name": "dense_scan_uc8", "route": "cuda",
@@ -308,6 +549,23 @@ def main() -> None:
             "launches": launches["extract_syndromes"], "max_abs_err": err_ex,
             "ms": ms_ex, "plain_ms": plain_ex, "bound_ms": b_ex,
             "bound_by": by_ex, "library_ms": None,
+        },
+        {
+            "name": "mag_uc8", "route": "cuda",
+            "source": "readsb_tpu_torch/csrc/mag_uc8.cu",
+            "replaces": "readsb_tpu/ops/pallas_kernels.py:999",
+            "launches": launches_ac["mag_uc8"], "max_abs_err": err_mag,
+            "ms": ms_mag, "plain_ms": plain_mag, "bound_ms": b_mag,
+            "bound_by": by_mag, "library_ms": lib_mag,
+            "samples": n_mag, "ms_at_path_shape": ms_mag_sb, "device_ms": dev_mag,
+        },
+        {
+            "name": "dense_scan", "route": "cuda",
+            "source": "readsb_tpu_torch/csrc/dense_scan.cu",
+            "replaces": "readsb_tpu/ops/pallas_kernels.py:335",
+            "launches": launches16["dense_scan"], "max_abs_err": err_densem,
+            "ms": ms_densem, "plain_ms": plain_densem, "bound_ms": b_dense,
+            "bound_by": by_dense, "library_ms": None, "device_ms": dev_densem,
         },
     ]}), flush=True)
     print(card, flush=True)

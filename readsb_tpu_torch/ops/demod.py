@@ -1,10 +1,12 @@
 """2.4 MS/s Mode-S demodulation as a dense batch pipeline (PyTorch).
 
-Stages of one dispatch (the raw-UC8 route):
+Stages of one dispatch:
 
-  1  fused UC8 convert + dense scan (kernels.dense_scan_uc8): preamble
-     pre-check, 3 correlation lanes, 5 slicer sign planes packed 32
-     samples per word, split hi/lo prefix sums of mag^2
+  1  dense scan: preamble pre-check, 3 correlation lanes, 5 slicer sign
+     planes packed 32 samples per word, split hi/lo prefix sums of mag^2;
+     of raw UC8 words with the conversion fused (kernels.dense_scan_uc8,
+     the raw route) or of uint16 magnitudes (kernels.dense_scan, the
+     magnitude route)
   2  compaction of the candidate mask to K ascending offsets
   3  win rows: per 256-sample block one 128-lane row holding every bit a
      candidate of that block needs; one whole-row gather per candidate
@@ -144,6 +146,19 @@ def _dense_stages(buf: torch.Tensor, threshold: int):
     return corrbits, pwords & pack_plane_words(inside[None]), cs_hi, cs_lo
 
 
+def first_k(mask: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+    """The first k set positions of a bool mask, ascending, `fill`-padded:
+    int32[k].  One int32 cumsum and one scatter into a k+1 buffer (slot k
+    collects ranks >= k): no nonzero, so no dynamic size and no device sync."""
+    dev = mask.device
+    rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    dest = torch.where(mask, rank.clamp(max=k), k).to(torch.int64)
+    pos = torch.arange(mask.shape[0], dtype=torch.int32, device=dev)
+    out = torch.full((k + 1,), fill, dtype=torch.int32, device=dev)
+    out.scatter_(0, dest, torch.where(mask, pos, fill))
+    return out[:k]
+
+
 def _compact_two_level(cand: torch.Tensor, k: int, l: int, scan_len: int):
     """Compact the candidate mask to k ascending offsets (sentinel scan_len).
 
@@ -151,24 +166,17 @@ def _compact_two_level(cand: torch.Tensor, k: int, l: int, scan_len: int):
     positions in ascending order and the most candidates in any 256-sample
     block.  readsb_tpu's two-level TPU compaction has a per-block capacity
     l and reports max_local > l as an overflow that the caller retries
-    with a larger l; this version is exact for any l, and the callers keep
-    the same escalation on max_local so both packages move through the
-    same capacities.  One int32 cumsum and one scatter into a k+1 buffer
-    (slot k collects ranks >= k): no nonzero, so no device sync.
+    with a larger l; this version (first_k) is exact for any l, and the
+    callers keep the same escalation on max_local so both packages move
+    through the same capacities.
     """
     del l  # exact for every capacity; kept for the escalation contract
-    dev = cand.device
     nb = (scan_len + _COMPACT_BLK - 1) // _COMPACT_BLK
-    c = torch.zeros(nb * _COMPACT_BLK, dtype=torch.int32, device=dev)
+    c = torch.zeros(nb * _COMPACT_BLK, dtype=torch.bool, device=cand.device)
     n = min(scan_len, cand.shape[0])
-    c[:n] = cand[:n].to(torch.int32)
+    c[:n] = cand[:n]
     max_local = c.reshape(nb, _COMPACT_BLK).sum(1, dtype=torch.int32).max()
-    rank = torch.cumsum(c, 0, dtype=torch.int32) - 1
-    dest = torch.where(c.bool(), rank.clamp(max=k), k).to(torch.int64)
-    pos = torch.arange(nb * _COMPACT_BLK, dtype=torch.int32, device=dev)
-    out = torch.full((k + 1,), scan_len, dtype=torch.int32, device=dev)
-    out.scatter_(0, dest, torch.where(c.bool(), pos, scan_len))
-    return out[:k], max_local
+    return first_k(c, k, scan_len), max_local
 
 
 class BlockCandidates(NamedTuple):
@@ -264,16 +272,28 @@ def pad_raw_words(buf: torch.Tensor) -> torch.Tensor:
     return bufp
 
 
+def pad_mag(buf: torch.Tensor) -> torch.Tensor:
+    """Zero-pad magnitudes to the dense-scan granule."""
+    n = buf.shape[0]
+    padded = -(-n // kernels.TILE) * kernels.TILE
+    if padded == n:
+        return buf
+    bufp = torch.zeros(padded, dtype=torch.uint16, device=buf.device)
+    bufp[:n] = buf
+    return bufp
+
+
 def dense_stage(buf: torch.Tensor, threshold: int, *, raw_uc8: bool):
-    """Stage 1: (corrbits, pwords, cs_hi, cs_lo) of raw words or magnitudes."""
+    """Stage 1: (corrbits, pwords, cs_hi, cs_lo) of raw words or magnitudes.
+
+    Magnitudes on the card go to the dense-scan kernel, zero-padded to its
+    granule; on the CPU to _dense_stages, which takes any length.  The two
+    agree wherever a candidate below scan_len reads."""
     if raw_uc8:
         return kernels.dense_scan_uc8(pad_raw_words(buf), threshold)
     if buf.device.type == "cpu":
         return _dense_stages(buf, threshold)
-    raise NotImplementedError(
-        "magnitude-route dense scan on the card: ROADMAP Queue 2 item 4 "
-        "(dense_scan_pallas) is not ported yet"
-    )
+    return kernels.dense_scan(pad_mag(buf), threshold)
 
 
 def candidate_rows(
@@ -313,7 +333,7 @@ def _demod_core(
 
     raw_uc8=True: buf is uint16 IQ *words* and the fused convert + dense
     scan kernel runs; otherwise buf holds uint16 magnitudes (the magnitude
-    route, whose dense-scan kernel is not ported yet: CPU tensors only).
+    route).
 
     Returns (BlockCandidates with zeroed sig fields, cs_hi, cs_lo).
 
@@ -361,7 +381,7 @@ def demod_block(
     scan_len: int | None = None,
     l: int = 64,
 ) -> BlockCandidates:
-    """Demodulate one magnitude block (CPU tensors; see _demod_core).
+    """Demodulate one magnitude block (see _demod_core).
 
     buf: uint16[scan_len + TRAILING_SAMPLES] magnitudes.  Scan offsets
     0..scan_len-1 are candidate positions.

@@ -10,9 +10,12 @@ the kernel launches, so a run can show that the main path used them.
                      32 samples/word, split hi/lo prefix sums of mag^2
   extract_syndromes  candidate win rows -> CRC-24 syndromes, message
                      bytes and correlation bits for 5 phases
+  mag_uc8            raw UC8 words -> uint16 magnitudes, equal to the LUT
+  dense_scan         uint16 magnitudes -> the outputs of dense_scan_uc8
 
 The output contracts are those of readsb_tpu.ops.pallas_kernels
-dense_scan_uc8_pallas and extract_syndromes_pallas.
+dense_scan_uc8_pallas, extract_syndromes_pallas, mag_uc8_pallas and
+dense_scan_pallas.  The two dense scans share one body (csrc/dense_scan.cuh).
 """
 
 from __future__ import annotations
@@ -29,10 +32,10 @@ import torch
 
 from .. import BUILD_DIR
 from . import crc as crc_ops
-from .convert import uc8_lut_np
+from .convert import mag_uc8_words, mag_uc8_words_i32, uc8_lut_np
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("dense_scan_uc8", "extract_syndromes")
+SOURCES = ("dense_scan_uc8", "extract_syndromes", "mag_uc8", "dense_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,14 +65,17 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> dict[str, str]:
     """Compile every csrc/*.cu into BUILD_DIR, one nvcc per source, all
-    started together.  Returns {name: ptxas report}; raises on failure."""
+    started together.  A library is rebuilt when its source or any header
+    of csrc/ is newer.  Returns {name: ptxas report}; raises on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     procs = {}
     for name in SOURCES:
         src = os.path.join(CSRC, name + ".cu")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
-        if not force and os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        newest = max(os.path.getmtime(f) for f in (src, *headers))
+        if not force and os.path.exists(so) and os.path.getmtime(so) >= newest:
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         procs[name] = (
@@ -108,12 +114,18 @@ def _lib(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
             lib.rtpu_cuda_error_string.restype = ctypes.c_char_p
             lib.rtpu_cuda_error_string.argtypes = [ctypes.c_int]
-            if name == "dense_scan_uc8":
-                lib.dense_scan_uc8.restype = ctypes.c_int
-                lib.dense_scan_uc8.argtypes = [
+            if name in ("dense_scan_uc8", "dense_scan"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [
                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ]
+            elif name == "mag_uc8":
+                lib.mag_uc8.restype = ctypes.c_int
+                lib.mag_uc8.argtypes = [
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                 ]
             else:
                 lib.extract_syndromes_set_tables.restype = ctypes.c_int
@@ -169,7 +181,7 @@ def pack_plane_words(planes: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Kernel 1: fused UC8 convert + dense scan
+# Kernels 1 and 4: the dense scan, of raw UC8 words and of magnitudes
 # ---------------------------------------------------------------------------
 
 
@@ -232,11 +244,38 @@ def dense_from_mag(m: torch.Tensor, threshold: int, tail: int):
 
 def dense_scan_uc8_plain(words: torch.Tensor, threshold: int):
     """Plain PyTorch version of dense_scan_uc8 (same contract)."""
-    w = words.to(torch.int64)
-    lut = torch.from_numpy(uc8_lut_np().astype(np.int32)).to(words.device)
-    m = lut[(w & 0xFF) * 256 + (w >> 8)]
     # a zero word past the end converts to full scale, as in the Pallas kernel
-    return dense_from_mag(m, threshold, tail=int(uc8_lut_np()[0]))
+    return dense_from_mag(mag_uc8_words_i32(words), threshold, tail=int(uc8_lut_np()[0]))
+
+
+def _launch_dense(name: str, samples: torch.Tensor, threshold: int):
+    """Allocate the outputs and launch the dense-scan library `name`."""
+    samples = samples.contiguous()
+    n = samples.shape[0]
+    dev = samples.device
+    corr = torch.empty(n, dtype=torch.int8, device=dev)
+    pwords = torch.empty((5, n // 32), dtype=torch.int32, device=dev)
+    cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
+    cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * (n // DENSE_BLOCK), dtype=torch.int32, device=dev)
+    lib = _lib(name)
+    rc = getattr(lib, name)(
+        samples.data_ptr(), n, int(threshold),
+        corr.data_ptr(), pwords.data_ptr(), cs_hi.data_ptr(), cs_lo.data_ptr(),
+        scratch.data_ptr(), _stream(samples),
+    )
+    _check(lib, rc, name)
+    return corr, pwords, cs_hi, cs_lo
+
+
+def _check_dense_input(samples: torch.Tensor, what: str) -> None:
+    if samples.dtype != torch.uint16 or samples.dim() != 1:
+        raise ValueError(
+            f"{what} must be 1-D uint16, got {samples.dtype} {tuple(samples.shape)}"
+        )
+    n = samples.shape[0]
+    if n == 0 or n % TILE:
+        raise ValueError(f"{what} length {n} is not a positive multiple of {TILE}")
 
 
 def dense_scan_uc8(words: torch.Tensor, threshold: int):
@@ -249,32 +288,66 @@ def dense_scan_uc8(words: torch.Tensor, threshold: int):
     Returns (corrbits int8[n], pwords int32[5, n // 32], cs_hi int32[n],
     cs_lo int32[n]) as in dense_from_mag.
     """
-    if words.dtype != torch.uint16 or words.dim() != 1:
-        raise ValueError(f"words must be 1-D uint16, got {words.dtype} {tuple(words.shape)}")
-    n = words.shape[0]
-    if n == 0 or n % TILE:
-        raise ValueError(f"words length {n} is not a positive multiple of {TILE}")
+    _check_dense_input(words, "words")
     if _on_cpu(words):
         return dense_scan_uc8_plain(words, threshold)
-    words = words.contiguous()
-    dev = words.device
-    corr = torch.empty(n, dtype=torch.int8, device=dev)
-    pwords = torch.empty((5, n // 32), dtype=torch.int32, device=dev)
-    cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
-    cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * (n // DENSE_BLOCK), dtype=torch.int32, device=dev)
-    lib = _lib("dense_scan_uc8")
-    rc = lib.dense_scan_uc8(
-        words.data_ptr(), n, int(threshold),
-        corr.data_ptr(), pwords.data_ptr(), cs_hi.data_ptr(), cs_lo.data_ptr(),
-        scratch.data_ptr(), _stream(words),
-    )
-    _check(lib, rc, "dense_scan_uc8")
+    out = _launch_dense("dense_scan_uc8", words, threshold)
     dense_scan_uc8.launches += 1
-    return corr, pwords, cs_hi, cs_lo
+    return out
 
 
 dense_scan_uc8.launches = 0
+
+
+def dense_scan_plain(mag: torch.Tensor, threshold: int):
+    """Plain PyTorch version of dense_scan (same contract)."""
+    return dense_from_mag(mag.to(torch.int32), threshold, tail=0)
+
+
+def dense_scan(mag: torch.Tensor, threshold: int):
+    """Dense scan of magnitudes.
+
+    mag: uint16[n] magnitudes, n % 65536 == 0 (callers pad with zero
+    magnitudes).  Samples past the end read as magnitude 0.  Returns
+    (corrbits, pwords, cs_hi, cs_lo) as in dense_from_mag.
+    """
+    _check_dense_input(mag, "mag")
+    if _on_cpu(mag):
+        return dense_scan_plain(mag, threshold)
+    out = _launch_dense("dense_scan", mag, threshold)
+    dense_scan.launches += 1
+    return out
+
+
+dense_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: UC8 words -> magnitudes
+# ---------------------------------------------------------------------------
+
+
+def mag_uc8(words: torch.Tensor) -> torch.Tensor:
+    """UC8 words uint16[N] (one I/Q pair per element, I in the low byte) ->
+    uint16[N] magnitudes, equal to the 64k LUT on every pair.  Any N.
+    The plain version is the LUT gather, convert.mag_uc8_words."""
+    if words.dtype != torch.uint16 or words.dim() != 1:
+        raise ValueError(f"words must be 1-D uint16, got {words.dtype} {tuple(words.shape)}")
+    if _on_cpu(words):
+        return mag_uc8_words(words)
+    words = words.contiguous()
+    n = words.shape[0]
+    out = torch.empty(n, dtype=torch.uint16, device=words.device)
+    if n == 0:
+        return out
+    lib = _lib("mag_uc8")
+    rc = lib.mag_uc8(words.data_ptr(), n, out.data_ptr(), _stream(words))
+    _check(lib, rc, "mag_uc8")
+    mag_uc8.launches += 1
+    return out
+
+
+mag_uc8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,25 @@
-"""Streaming demodulation pipeline: UC8 IQ bytes in -> accepted Mode-S frames out.
+"""Streaming demodulation pipeline: IQ bytes in -> accepted Mode-S frames out.
 
-The gated raw-UC8 route of readsb_tpu.pipeline, in PyTorch.  The host
-owns block bookkeeping (the 326-sample carried overlap of raw words, the
-scan-global index, EOF padding); one device dispatch per superblock runs
-the fused convert + dense scan kernel, compaction, the win-row gather,
-the extraction kernel and the score gate, and a small readback of the
-kept candidates goes to the host finalizer (native/finalizer.cpp or
-decode/score.finalize_block).
+readsb_tpu.pipeline in PyTorch.  The host owns block bookkeeping (the
+326-sample carried overlap, the scan-global index, EOF padding); one
+device dispatch per superblock does the per-sample work, and a readback
+of candidates goes to the host finalizer (native/finalizer.cpp or
+decode/score.finalize_block).  Three routes, chosen as readsb_tpu does:
+
+  raw        fmt="uc8", gated, no Mode A/C: raw words go to the fused
+             convert + dense scan kernel, then compaction, the win-row
+             gather, the extraction kernel and the score gate; only the
+             kept candidates are read back
+  magnitude, gated   fmt="sc16" / "sc16q11" (or process_mag): samples are
+             converted to uint16 magnitudes first (ops/convert.py), the
+             dense scan runs on them (kernels.dense_scan), the rest as
+             above; the block's mean level and power fall out of the
+             same dispatch
+  magnitude, ungated use_gate=False or modeac=True (any format; uc8 is
+             converted by kernels.mag_uc8): all K candidates are read
+             back and the host finalizer classifies them; with
+             modeac=True the Mode A/C pass (ops/modeac.py) scans the
+             same magnitude buffer
 
 Frame-level parity with the reference (sdr_ifile.c:169-260 block cadence):
 
@@ -24,13 +37,19 @@ import numpy as np
 import torch
 
 from .constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT, TRAILING_SAMPLES
+from .decode import mode_ac as mode_ac_dec
 from .decode.score import DemodStats, RawFrame, Scorer, finalize_block
+from .ops import convert as convert_ops
 from .ops import demod as demod_ops
+from .ops import kernels
+from .ops import modeac as modeac_ops
 from .ops.gate import DeviceIcaoMirror, score_gate, skipped_drops
 
-BYTES_PER_SAMPLE = 2  # uc8: one I byte and one Q byte
+# uc8: one I byte and one Q byte; sc16 / sc16q11: little-endian int16 each
+BYTES_PER_SAMPLE = {"uc8": 2, "sc16": 4, "sc16q11": 4}
 # 0x8080 = I=Q=128, the quietest uc8 sample (magnitude 363): the initial
-# overlap, as on readsb_tpu's raw route
+# overlap of the raw route.  The magnitude route starts from 326 zero
+# magnitudes.  Both as in readsb_tpu.
 SILENT_WORD = 0x8080
 
 
@@ -46,13 +65,9 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_route(fmt: str, modeac: bool) -> None:
-    if fmt != "uc8":
-        raise NotImplementedError(
-            f"fmt={fmt!r}: the magnitude route (ROADMAP Queue 1 item 6) is not ported yet"
-        )
-    if modeac:
-        raise NotImplementedError("Mode A/C: ROADMAP Queue 1 item 7 is not ported yet")
+def _check_fmt(fmt: str) -> None:
+    if fmt not in BYTES_PER_SAMPLE:
+        raise ValueError(f"unknown sample format {fmt!r}; one of {sorted(BYTES_PER_SAMPLE)}")
 
 
 def _load_native(use_native: bool | None):
@@ -72,6 +87,16 @@ def _words_from_bytes(raw: np.ndarray, shape, device: torch.device) -> torch.Ten
     """uint8 I/Q bytes -> uint16 words (I in the low byte) on the device."""
     w = np.ascontiguousarray(raw).view("<u2").reshape(shape)
     return torch.from_numpy(w.copy()).to(device)
+
+
+def _to_mag(raw: np.ndarray, fmt: str, device: torch.device) -> torch.Tensor:
+    """uint8 IQ bytes of any format -> uint16 magnitudes on the device."""
+    if fmt == "uc8":
+        return kernels.mag_uc8(_words_from_bytes(raw, (-1,), device))
+    iq16 = torch.from_numpy(np.ascontiguousarray(raw).view("<i2").copy()).to(device)
+    if fmt == "sc16":
+        return convert_ops.mag_sc16(iq16)
+    return convert_ops.mag_sc16q11(iq16)
 
 
 def _sigsum(a: np.ndarray) -> np.ndarray:
@@ -121,16 +146,33 @@ def _demod_and_gate_raw(
     )
 
 
-def multi_raw_buffer(words, overlap_words, seg_stride: int, seg_valid: int) -> torch.Tensor:
-    """Channels (C, S) laid out as concatenated segments [overlap | samples |
-    zero gap] plus SEG_PAD zero words, so the dense scan runs once over one
-    flat buffer; candidate offsets stay global (channel = offset // seg_stride)."""
-    c = words.shape[0]
+def _demod_and_gate(
+    mag, overlap, valid_len, threshold, known_tbl,
+    *, k, scan_len, l, k2, nfix, fix_df, reset_every, keep_l=64,
+):
+    """One dispatch of the gated magnitude route: magnitudes (S,) + overlap
+    (326,) -> (GatedCandidates, new overlap, block_sums of the valid samples)."""
+    buf = torch.cat([overlap, mag])
+    bc, cs_hi, cs_lo = demod_ops._demod_core(buf, threshold, k=k, scan_len=scan_len, l=l)
+    gc = score_gate(
+        bc, known_tbl, cs_hi, cs_lo, valid_len,
+        scan_len=scan_len, k2=k2, nfix=nfix, fix_df=fix_df,
+        reset_every=reset_every, keep_l=keep_l,
+    )
+    return gc, buf[-TRAILING_SAMPLES:].clone(), convert_ops.block_sums(mag[:valid_len])
+
+
+def multi_buffer(samples, overlaps, seg_stride: int, seg_valid: int) -> torch.Tensor:
+    """Channels (C, S) of raw words or magnitudes laid out as concatenated
+    segments [overlap | samples | zero gap] plus SEG_PAD zeros, so the dense
+    scan runs once over one flat buffer; candidate offsets stay global
+    (channel = offset // seg_stride)."""
+    c = samples.shape[0]
     buf = torch.zeros(c * seg_stride + MultiDemodulator.SEG_PAD, dtype=torch.uint16,
-                      device=words.device)
+                      device=samples.device)
     seg = buf[: c * seg_stride].view(c, seg_stride)
-    seg[:, :TRAILING_SAMPLES] = overlap_words
-    seg[:, TRAILING_SAMPLES : TRAILING_SAMPLES + seg_valid] = words
+    seg[:, :TRAILING_SAMPLES] = overlaps
+    seg[:, TRAILING_SAMPLES : TRAILING_SAMPLES + seg_valid] = samples
     return buf
 
 
@@ -140,7 +182,7 @@ def _demod_and_gate_multi_raw(
     keep_l=64,
 ):
     """One dispatch over C channels: words (C, S) + overlaps (C, 326)."""
-    buf = multi_raw_buffer(words, overlap_words, seg_stride, seg_valid)
+    buf = multi_buffer(words, overlap_words, seg_stride, seg_valid)
     bc, cs_hi, cs_lo = demod_ops._demod_core(
         buf, threshold, k=k, scan_len=scan_len, l=l,
         seg_stride=seg_stride, seg_valid=seg_valid, raw_uc8=True,
@@ -150,6 +192,28 @@ def _demod_and_gate_multi_raw(
         scan_len=scan_len, k2=k2, nfix=nfix, fix_df=fix_df,
         reset_every=reset_every, seg_stride=seg_stride, keep_l=keep_l,
     )
+
+
+def _demod_and_gate_multi(
+    mags, overlaps, valid_len, threshold, known_tbl,
+    *, k, scan_len, l, k2, nfix, fix_df, reset_every, seg_stride, seg_valid,
+    keep_l=64,
+):
+    """One dispatch of the magnitude route over C channels: mags (C, S) +
+    overlaps (C, 326) -> (GatedCandidates, new overlaps, per-channel
+    block_sums of the valid samples)."""
+    buf = multi_buffer(mags, overlaps, seg_stride, seg_valid)
+    bc, cs_hi, cs_lo = demod_ops._demod_core(
+        buf, threshold, k=k, scan_len=scan_len, l=l,
+        seg_stride=seg_stride, seg_valid=seg_valid,
+    )
+    gc = score_gate(
+        bc, known_tbl, cs_hi, cs_lo, valid_len,
+        scan_len=scan_len, k2=k2, nfix=nfix, fix_df=fix_df,
+        reset_every=reset_every, seg_stride=seg_stride, keep_l=keep_l,
+    )
+    sums = convert_ops.block_sums(mags[:, :valid_len])
+    return gc, mags[:, -TRAILING_SAMPLES:].clone(), sums
 
 
 def _stats_of(fin, native: bool, gate_drops: list[int]) -> DemodStats:
@@ -190,9 +254,10 @@ class Demodulator:
         carry_skip: bool = False,
         use_native: bool | None = None,
         modeac: bool = False,
+        use_gate: bool | None = None,
         device: torch.device | str = "cuda",
     ):
-        _check_route(fmt, modeac)
+        _check_fmt(fmt)
         self.device = _resolve_device(device)
         self.fmt = fmt
         self.block_samples = block_samples
@@ -210,6 +275,16 @@ class Demodulator:
         self.scan_global = 0
         self._skip = 0
         self._pending = b""
+        self.mean_level = 0.0
+        self.mean_power = 0.0
+        self.modeac = modeac
+        self.modeac_k = 512 * blocks_per_batch
+        self.modeac_msgs: list = []  # decoded ModesMessage, drained by caller
+        self.stats_modeac = 0
+        # device-side score gate: only plausibly-acceptable candidates are
+        # read back (ops/gate.py); frame output and stats are unchanged.
+        # None means gated, readsb_tpu's default on an accelerator.
+        self.use_gate = True if use_gate is None else bool(use_gate)
         self.gate_k2 = 1024
         self.gate_keep_l = 64
         self._gate_drops = [0, 0, 0]  # preambles, rejected_unknown, rejected_bad
@@ -217,6 +292,12 @@ class Demodulator:
         self._overlap_words = torch.full(
             (TRAILING_SAMPLES,), SILENT_WORD, dtype=torch.uint16, device=self.device
         )
+        self._overlap_dev = torch.zeros(TRAILING_SAMPLES, dtype=torch.uint16, device=self.device)
+
+    @property
+    def raw_route(self) -> bool:
+        """True when superblocks take the fused raw-UC8 route."""
+        return self.use_gate and not self.modeac and self.fmt == "uc8"
 
     @property
     def stats(self) -> DemodStats:
@@ -225,33 +306,75 @@ class Demodulator:
         return _stats_of(self.scorer, False, self._gate_drops)
 
     def feed(self, raw: bytes) -> list[RawFrame]:
-        """Feed raw UC8 bytes; returns frames completed by full superblocks."""
+        """Feed raw IQ bytes; returns frames completed by full superblocks.
+
+        On the gated magnitude route, when several superblocks are
+        available, the next chunk's upload and magnitude conversion are
+        enqueued before the current chunk's host-side finalize, so the
+        device works while the host scores.  The demod dispatch itself
+        still follows the previous finalize, so the ICAO gate table is
+        exact.
+        """
+        super_bytes = self.super_samples * BYTES_PER_SAMPLE[self.fmt]
         data = self._pending + raw
-        super_bytes = self.super_samples * BYTES_PER_SAMPLE
-        frames: list[RawFrame] = []
+        chunks = []
         off = 0
         while len(data) - off >= super_bytes:
-            chunk = np.frombuffer(data, dtype=np.uint8, count=super_bytes, offset=off)
-            frames.extend(self._process(chunk, self.super_samples))
+            chunks.append(np.frombuffer(data, dtype=np.uint8, count=super_bytes, offset=off))
             off += super_bytes
         self._pending = data[off:]
+        frames: list[RawFrame] = []
+        if len(chunks) > 1 and self.use_gate and not self.modeac and not self.raw_route:
+            next_mag = _to_mag(chunks[0], self.fmt, self.device)
+            for i in range(len(chunks)):
+                mag = next_mag
+                if i + 1 < len(chunks):
+                    next_mag = _to_mag(chunks[i + 1], self.fmt, self.device)  # prefetch
+                frames.extend(self._demod_mag_gated(mag, self.super_samples))
+            return frames
+        for chunk in chunks:
+            frames.extend(self._process(chunk, self.super_samples))
         return frames
 
     def flush(self) -> list[RawFrame]:
         """Process the final partial superblock (EOF)."""
-        n = len(self._pending) // BYTES_PER_SAMPLE
+        bps = BYTES_PER_SAMPLE[self.fmt]
+        n = len(self._pending) // bps
         if n == 0:
             self._pending = b""
             return []
-        chunk = np.zeros(self.super_samples * BYTES_PER_SAMPLE, dtype=np.uint8)
-        chunk[: n * BYTES_PER_SAMPLE] = np.frombuffer(
-            self._pending, dtype=np.uint8, count=n * BYTES_PER_SAMPLE
-        )
+        chunk = np.zeros(self.super_samples * bps, dtype=np.uint8)
+        chunk[: n * bps] = np.frombuffer(self._pending, dtype=np.uint8, count=n * bps)
         self._pending = b""
         return self._process(chunk, n)
 
     def _process(self, chunk, valid_len: int) -> list[RawFrame]:
-        """One superblock: uint8 bytes, or pre-staged uint16 words on the device."""
+        """One superblock: uint8 bytes or, on the raw route, pre-staged
+        uint16 words on the device."""
+        if self.raw_route:
+            return self._demod_raw_gated(chunk, valid_len)
+        if isinstance(chunk, torch.Tensor):
+            raise ValueError("pre-staged words are taken on the raw-UC8 route only")
+        mag = _to_mag(chunk, self.fmt, self.device)
+        if self.use_gate and not self.modeac:
+            return self._demod_mag_gated(mag, valid_len)
+        self.mean_level, self.mean_power = convert_ops.block_stats(mag[:valid_len])
+        return self._demod_buf(torch.cat([self._overlap_dev, mag]), valid_len)
+
+    def process_mag(self, mag: np.ndarray) -> list[RawFrame]:
+        """Feed a pre-converted magnitude superblock (super_samples long)."""
+        if len(mag) != self.super_samples:
+            raise ValueError(f"expected {self.super_samples} magnitudes, got {len(mag)}")
+        mag_t = torch.from_numpy(np.array(mag, dtype=np.uint16)).to(self.device)
+        if self.use_gate and not self.modeac:
+            return self._demod_mag_gated(mag_t, self.super_samples)
+        if self.modeac:
+            self.mean_level, self.mean_power = convert_ops.block_stats(mag_t)
+        return self._demod_buf(torch.cat([self._overlap_dev, mag_t]), self.super_samples)
+
+    def _demod_raw_gated(self, chunk, valid_len: int) -> list[RawFrame]:
+        """Raw route: UC8 words straight into the convert + dense scan
+        kernel; the magnitude array never exists in device memory."""
         if isinstance(chunk, torch.Tensor):
             words = chunk.to(self.device)
         else:
@@ -272,17 +395,126 @@ class Demodulator:
         self._overlap_words = words[-TRAILING_SAMPLES:].clone()
         return _finalize_gated(self, gc, n_keep, valid_len)
 
+    def _demod_mag_gated(self, mag: torch.Tensor, valid_len: int) -> list[RawFrame]:
+        """Gated magnitude route: demod + score gate in one dispatch; a small
+        readback, and the block's level and power from exact integer sums."""
+        while True:
+            gc, new_overlap, sums = _demod_and_gate(
+                mag, self._overlap_dev, valid_len, self.threshold, self.icao_mirror.tbl,
+                k=self.k, scan_len=self.super_samples, l=self.compact_l,
+                k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
+                reset_every=self.block_samples, keep_l=self.gate_keep_l,
+            )
+            n_keep = _fit_or_grow(self, gc)
+            if n_keep is not None:
+                break
+        self._overlap_dev = new_overlap
+        level, power = convert_ops.level_power(sums.cpu().numpy(), valid_len)
+        self.mean_level, self.mean_power = float(level), float(power)
+        return _finalize_gated(self, gc, n_keep, valid_len)
+
+    def _demod_modeac(self, buf: torch.Tensor, valid_len: int) -> None:
+        """Mode A/C pass over the same magnitude buffer (--modeac)."""
+        stddev = np.sqrt(max(0.0, self.mean_power - self.mean_level**2))
+        noise_level = int((self.mean_power + stddev) * 65535 + 0.5)
+        k = self.modeac_k
+        while True:
+            cand = modeac_ops.modeac_block(buf, noise_level, k=k, scan_len=self.super_samples)
+            n = int(cand.n_cand)
+            if n <= k:
+                break
+            while k < n:
+                k *= 2
+            self.modeac_k = k
+        offsets, ok, code, f2_clock = _fetch(cand, ("offsets", "ok", "modeac", "f2_clock"))
+        offsets = np.where(offsets < valid_len, offsets, self.super_samples)
+        hits = mode_ac_dec.finalize_modeac(
+            offsets, ok, code, f2_clock, n,
+            scan_len=self.super_samples, block_scan_start=self.scan_global,
+        )
+        for modea, ts, _off in hits:
+            self.modeac_msgs.append(mode_ac_dec.decode_modeac_message(
+                modea, timestamp=ts, sys_timestamp_ms=ts // 12000
+            ))
+        self.stats_modeac += len(hits)
+
+    def _demod_buf(self, buf: torch.Tensor, valid_len: int) -> list[RawFrame]:
+        """Ungated route: all K candidates are read back and the host
+        finalizer classifies every one of them."""
+        if self.modeac:
+            self._demod_modeac(buf, valid_len)
+        k = self.k
+        while True:
+            cand = demod_ops.demod_block(
+                buf, self.threshold, k=k, scan_len=self.super_samples, l=self.compact_l
+            )
+            n, max_local = torch.stack([cand.n_cand, cand.max_local]).tolist()
+            if n <= k and max_local <= self.compact_l:
+                break
+            # capacity overflow: escalate and redo
+            while k < n:
+                k *= 2
+            self.k = k
+            while self.compact_l < max_local:
+                self.compact_l *= 2
+
+        offsets, cf, msg, s112, s56 = _fetch(
+            cand, ("offsets", "corr_fired", "msg", "syn112", "syn56")
+        )
+        offsets = np.where(offsets < valid_len, offsets, self.super_samples)
+        args = (offsets, n, cf, msg, s112, s56, cand.sigsum_long, cand.sigsum_short)
+        kw = dict(
+            scan_len=self.super_samples,
+            block_scan_start=self.scan_global,
+            carry_skip=self._skip,
+            reset_every=self.block_samples,
+        )
+        if self.native is not None:
+            frames, leftover = self.native.finalize_block(*args, **kw)
+        else:
+            frames, leftover = finalize_block(self.scorer, *args, **kw)
+        self._skip = leftover if self.carry_skip else 0
+
+        # advance stream state
+        self._overlap_dev = buf[-TRAILING_SAMPLES:].clone()
+        self.scan_global += valid_len
+
+        # ICAO filter generation aging on the synthetic clock
+        now_ms = self.scan_global * 5 // 12000
+        if self.native is not None:
+            self.native.icao_expire(now_ms)
+        else:
+            self.scorer.icao.expire(now_ms)
+        return frames
+
     def load_state(self, state: dict) -> None:
         """Continue a stream from state.demod_state_from_numpy(...)."""
-        ow = np.asarray(state["overlap_words"], dtype=np.uint16)
-        if ow.shape != (TRAILING_SAMPLES,):
-            raise ValueError(f"overlap_words shape {ow.shape}")
         if self.native is not None:
             raise ValueError("the ICAO filter hand-over needs use_native=False")
-        self._overlap_words = torch.from_numpy(ow.copy()).to(self.device)
+        overlap = _overlap_of(state, self.raw_route, (TRAILING_SAMPLES,), self.device)
+        if self.raw_route:
+            self._overlap_words = overlap
+        else:
+            self._overlap_dev = overlap
+            self.mean_level = float(state["mean_level"])
+            self.mean_power = float(state["mean_power"])
+            self.modeac_k = state["modeac_k"]
         _load_common(self, self.icao_mirror, state)
         (icao,) = state["icao"]
         _load_filter(self.scorer.icao, icao)
+
+
+def _overlap_of(state: dict, raw_route: bool, shape: tuple, device) -> torch.Tensor:
+    """The carried overlap of the route the demodulator runs: raw words for
+    the raw route, magnitudes for the magnitude route.  The two are not
+    interchangeable, so a state of the other route is refused."""
+    key = "overlap_words" if raw_route else "overlap_mag"
+    if state.get(key) is None:
+        raise ValueError(f"this demodulator's route needs {key} in the state")
+    ov = np.asarray(state[key], dtype=np.uint16)
+    if ov.shape != shape:
+        raise ValueError(f"{key} shape {ov.shape}, expected {shape}")
+    return torch.from_numpy(ov.copy()).to(device)
 
 
 def _load_common(demod, mirror: DeviceIcaoMirror, state: dict) -> None:
@@ -372,7 +604,7 @@ class MultiDemodulator:
         use_native: bool | None = None,
         device: torch.device | str = "cuda",
     ):
-        _check_route(fmt, False)
+        _check_fmt(fmt)
         self.device = _resolve_device(device)
         self.n_chan = n_chan
         self.fmt = fmt
@@ -402,12 +634,22 @@ class MultiDemodulator:
         self._overlap_words = torch.full(
             (n_chan, TRAILING_SAMPLES), SILENT_WORD, dtype=torch.uint16, device=self.device
         )
+        self._overlap_dev = torch.zeros(
+            (n_chan, TRAILING_SAMPLES), dtype=torch.uint16, device=self.device
+        )
+        self.mean_level = np.zeros(n_chan)
+        self.mean_power = np.zeros(n_chan)
+
+    @property
+    def raw_route(self) -> bool:
+        """True when superblocks take the fused raw-UC8 route (always gated)."""
+        return self.fmt == "uc8"
 
     def feed(self, raws: list[bytes]) -> list[list[RawFrame]]:
         """Feed one bytes chunk per channel; returns per-channel frames."""
         if len(raws) != self.n_chan:
             raise ValueError(f"expected {self.n_chan} channel chunks, got {len(raws)}")
-        super_bytes = self.seg_valid * BYTES_PER_SAMPLE
+        super_bytes = self.seg_valid * BYTES_PER_SAMPLE[self.fmt]
         for c, r in enumerate(raws):
             self._pending[c] = self._pending[c] + r if self._pending[c] else r
         out: list[list[RawFrame]] = [[] for _ in range(self.n_chan)]
@@ -427,11 +669,12 @@ class MultiDemodulator:
         Channels must be lockstep (same pending length) for exact parity;
         shorter channels are padded with zero bytes.
         """
-        n = max(len(p) for p in self._pending) // BYTES_PER_SAMPLE
+        bps = BYTES_PER_SAMPLE[self.fmt]
+        n = max(len(p) for p in self._pending) // bps
         if n == 0:
             self._pending = [b""] * self.n_chan
             return [[] for _ in range(self.n_chan)]
-        super_bytes = self.seg_valid * BYTES_PER_SAMPLE
+        super_bytes = self.seg_valid * bps
         chunk = np.zeros((self.n_chan, super_bytes), dtype=np.uint8)
         for c, p in enumerate(self._pending):
             chunk[c, : len(p)] = np.frombuffer(p, dtype=np.uint8)
@@ -439,28 +682,43 @@ class MultiDemodulator:
         return self._process(chunk, n)
 
     def _process(self, chunk, valid_len: int) -> list[list[RawFrame]]:
-        """One superblock: uint8[C, 2S] bytes, or PRE-STAGED uint16[C, S]
-        words on the device (no per-dispatch IQ upload)."""
+        """One superblock: uint8[C, bytes] IQ bytes or, on the raw route,
+        PRE-STAGED uint16[C, S] words on the device (no per-dispatch IQ
+        upload)."""
         shape = (self.n_chan, self.seg_valid)
-        if isinstance(chunk, torch.Tensor):
-            words = chunk.to(self.device)
+        if self.raw_route:
+            if isinstance(chunk, torch.Tensor):
+                samples = chunk.to(self.device)
+            else:
+                samples = _words_from_bytes(chunk, shape, self.device)
+            if samples.dtype != torch.uint16 or tuple(samples.shape) != shape:
+                raise ValueError(f"expected uint16{list(shape)} words")
+            dispatch, overlaps = _demod_and_gate_multi_raw, self._overlap_words
         else:
-            words = _words_from_bytes(chunk, shape, self.device)
-        if words.dtype != torch.uint16 or tuple(words.shape) != shape:
-            raise ValueError(f"expected uint16{list(shape)} words")
+            if isinstance(chunk, torch.Tensor):
+                raise ValueError("pre-staged words are taken on the raw-UC8 route only")
+            samples = _to_mag(chunk.reshape(-1), self.fmt, self.device).reshape(shape)
+            dispatch, overlaps = _demod_and_gate_multi, self._overlap_dev
         while True:
-            gc = _demod_and_gate_multi_raw(
-                words, self._overlap_words, valid_len, self.threshold, self.mirror.tbl,
+            out = dispatch(
+                samples, overlaps, valid_len, self.threshold, self.mirror.tbl,
                 k=self.k, scan_len=self.scan_len, l=self.compact_l,
                 k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
                 reset_every=self.block_samples,
                 seg_stride=self.seg_stride, seg_valid=self.seg_valid,
                 keep_l=self.gate_keep_l,
             )
+            gc = out if self.raw_route else out[0]
             n_keep = _fit_or_grow(self, gc)
             if n_keep is not None:
                 break
-        self._overlap_words = words[:, -TRAILING_SAMPLES:].clone()
+        if self.raw_route:
+            self._overlap_words = samples[:, -TRAILING_SAMPLES:].clone()
+        else:
+            _, self._overlap_dev, sums = out
+            self.mean_level, self.mean_power = convert_ops.level_power(
+                sums.cpu().numpy(), valid_len
+            )
 
         (offs, cf, msgb, s112, s56, sl, ss, dcq, dcb, dcc) = _fetch(
             gc,
@@ -537,15 +795,20 @@ class MultiDemodulator:
 
     def load_state(self, state: dict) -> None:
         """Continue C streams from state.demod_state_from_numpy(...)."""
-        ow = np.asarray(state["overlap_words"], dtype=np.uint16)
-        if ow.shape != (self.n_chan, TRAILING_SAMPLES):
-            raise ValueError(f"overlap_words shape {ow.shape}")
         if self.native:
             raise ValueError("the ICAO filter hand-over needs use_native=False")
-        self._overlap_words = torch.from_numpy(ow.copy()).to(self.device)
-        _load_common(self, self.mirror, state)
         if len(state["icao"]) != self.n_chan:
             raise ValueError("one ICAO filter state per channel expected")
+        overlap = _overlap_of(
+            state, self.raw_route, (self.n_chan, TRAILING_SAMPLES), self.device
+        )
+        if self.raw_route:
+            self._overlap_words = overlap
+        else:
+            self._overlap_dev = overlap
+            self.mean_level = np.broadcast_to(state["mean_level"], (self.n_chan,)).copy()
+            self.mean_power = np.broadcast_to(state["mean_power"], (self.n_chan,)).copy()
+        _load_common(self, self.mirror, state)
         for fin, icao in zip(self.fins, state["icao"]):
             _load_filter(fin.icao, icao)
 
@@ -554,7 +817,7 @@ def demodulate_file(path: str, fmt: str = "uc8", **kw) -> tuple[list[RawFrame], 
     """Demodulate a whole IQ capture file (the reference's --ifile mode)."""
     demod = Demodulator(fmt=fmt, **kw)
     frames: list[RawFrame] = []
-    chunk_bytes = demod.super_samples * BYTES_PER_SAMPLE
+    chunk_bytes = demod.super_samples * BYTES_PER_SAMPLE[fmt]
     with open(path, "rb") as f:
         while True:
             raw = f.read(chunk_bytes)

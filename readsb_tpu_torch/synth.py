@@ -3,9 +3,10 @@
 Builds 1090ES downlink waveforms (preamble + PPM bits) at 2.4 MS/s with
 arbitrary sub-sample phase, embeds encoded DF11/DF17/DF4 frames from a
 fleet of simulated aircraft (CPR-encoded positions, velocity, ident), adds
-Gaussian noise, and renders UC8 IQ plus a ground-truth list.  Given the
-same arguments it renders the same bytes as tools/synth.py, so a capture
-can be decoded by both packages and the results compared.
+Gaussian noise, and renders UC8 or SC16 IQ plus a ground-truth list; Mode
+A/C replies can be added to the same timeline.  Given the same arguments
+it renders the same bytes as tools/synth.py, so a capture can be decoded
+by both packages and the results compared.
 """
 
 from __future__ import annotations
@@ -215,6 +216,58 @@ def frame_envelope(msg: bytes, nbits: int, fs: float = SAMPLE_RATE, phase: float
     return env[: n_out * oversample].reshape(n_out, oversample).mean(axis=1)
 
 
+MODEAC_BIT_US = 1.45
+
+# bit index -> modeA hex-code bit (demod_2400.c:585-606 framing layout)
+_MODEAC_BIT_SRC = {
+    1: 0x0010, 2: 0x1000, 3: 0x0020, 4: 0x2000, 5: 0x0040, 6: 0x4000,
+    8: 0x0100, 9: 0x0001, 10: 0x0200, 11: 0x0002, 12: 0x0400, 13: 0x0004,
+    17: 0x0080,
+}
+
+
+def modeac_envelope(modea: int, fs: float = SAMPLE_RATE, phase: float = 0.0,
+                    oversample: int = 10) -> np.ndarray:
+    """Amplitude envelope of a Mode A/C reply: F1/F2 framing pulses plus
+    the code pulses, 0.45us wide on a 1.45us bit grid."""
+    total_us = 20 * MODEAC_BIT_US + 2.0
+    fine_rate = fs * oversample
+    n_fine = int(total_us * 1e-6 * fine_rate) + oversample * 4
+    env = np.zeros(n_fine, dtype=np.float32)
+
+    def pulse(start_us: float, dur_us: float = 0.45):
+        a = int(round(start_us * 1e-6 * fine_rate))
+        b = int(round((start_us + dur_us) * 1e-6 * fine_rate))
+        env[a:b] = 1.0
+
+    for bit in range(20):
+        on = bit in (0, 14) or bool(modea & _MODEAC_BIT_SRC.get(bit, 0))
+        if on:
+            pulse(bit * MODEAC_BIT_US)
+
+    shift = int(round(phase * oversample))
+    if shift:
+        env = np.concatenate([np.zeros(shift, dtype=np.float32), env])[: len(env)]
+    n_out = len(env) // oversample
+    return env[: n_out * oversample].reshape(n_out, oversample).mean(axis=1)
+
+
+def quantize_uc8(iq: np.ndarray) -> np.ndarray:
+    """Complex IQ -> interleaved uint8 I/Q bytes (2 per sample)."""
+    out = np.empty(len(iq) * 2, dtype=np.uint8)
+    out[0::2] = np.clip(np.round(iq.real * 127.5 + 127.5), 0, 255).astype(np.uint8)
+    out[1::2] = np.clip(np.round(iq.imag * 127.5 + 127.5), 0, 255).astype(np.uint8)
+    return out
+
+
+def quantize_sc16(iq: np.ndarray) -> np.ndarray:
+    """Complex IQ -> interleaved little-endian int16 I/Q (2 per sample)."""
+    out = np.empty(len(iq) * 2, dtype="<i2")
+    out[0::2] = np.clip(np.round(iq.real * 32767), -32768, 32767).astype("<i2")
+    out[1::2] = np.clip(np.round(iq.imag * 32767), -32768, 32767).astype("<i2")
+    return out
+
+
 class CaptureBuilder:
     """Accumulates frames on a timeline, then renders IQ."""
 
@@ -241,6 +294,20 @@ class CaptureBuilder:
             {"t": t_s, "hex": msg.hex(), "bits": nbits, "amp": amplitude, "phase": phase}
         )
 
+    def add_modeac(self, modea: int, t_s: float, amplitude: float = 0.4,
+                   phase: float | None = None) -> None:
+        if phase is None:
+            phase = self.rng.uniform(0, 1)
+        wave = modeac_envelope(modea, self.fs, phase) * amplitude
+        start = int(round(t_s * self.fs))
+        end = min(start + len(wave), self.n)
+        if start >= self.n:
+            return
+        self.env[start:end] = np.maximum(self.env[start:end], wave[: end - start])
+        self.truth.append(
+            {"t": t_s, "modeac": modea, "amp": amplitude, "phase": phase}
+        )
+
     def render_iq(self) -> np.ndarray:
         """Complex float IQ: carrier at a small offset + Gaussian noise."""
         t = np.arange(self.n, dtype=np.float64)
@@ -254,14 +321,19 @@ class CaptureBuilder:
 
     def render_uc8(self) -> np.ndarray:
         """Interleaved uint8 I/Q bytes (2 per sample) of render_iq()."""
-        iq = self.render_iq()
-        out = np.empty(self.n * 2, dtype=np.uint8)
-        out[0::2] = np.clip(np.round(iq.real * 127.5 + 127.5), 0, 255).astype(np.uint8)
-        out[1::2] = np.clip(np.round(iq.imag * 127.5 + 127.5), 0, 255).astype(np.uint8)
-        return out
+        return quantize_uc8(self.render_iq())
+
+    def render_sc16(self) -> np.ndarray:
+        """Interleaved little-endian int16 I/Q (2 per sample) of render_iq().
+        Every render draws fresh noise: quantize one render_iq() both ways
+        for the same capture in two formats."""
+        return quantize_sc16(self.render_iq())
 
     def write_uc8(self, path: str) -> None:
         self.render_uc8().tofile(path)
+
+    def write_sc16(self, path: str) -> None:
+        self.render_sc16().tofile(path)
 
     def write_truth(self, path: str) -> None:
         with open(path, "w") as f:

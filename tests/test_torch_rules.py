@@ -39,7 +39,10 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 @pytest.mark.parametrize(
-    "make", [lambda: Demodulator(), lambda: MultiDemodulator(2)], ids=["single", "multi"]
+    "make",
+    [lambda: Demodulator(), lambda: MultiDemodulator(2),
+     lambda: Demodulator(fmt="sc16"), lambda: MultiDemodulator(2, fmt="sc16")],
+    ids=["single", "multi", "single-sc16", "multi-sc16"],
 )
 def test_default_device_is_the_card(make):
     if torch.cuda.is_available():
@@ -51,9 +54,35 @@ def test_default_device_is_the_card(make):
 @pytest.mark.parametrize(
     "kw", [{"fmt": "sc16"}, {"fmt": "sc16q11"}, {"modeac": True}], ids=["sc16", "sc16q11", "modeac"]
 )
-def test_unported_routes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Demodulator(device="cpu", **kw)
+def test_magnitude_routes_construct_on_the_cpu(kw):
+    d = Demodulator(device="cpu", use_native=False, **kw)
+    assert d.raw_route is False and d.use_gate is True
+    assert d._overlap_dev.dtype == torch.uint16 and not d._overlap_dev.any()
+    assert d.modeac_msgs == [] and d.stats_modeac == 0
+
+
+@pytest.mark.parametrize(
+    "make",
+    [lambda: Demodulator(fmt="cu8", device="cpu"),
+     lambda: MultiDemodulator(2, fmt="sc8", device="cpu")],
+    ids=["single", "multi"],
+)
+def test_unknown_format_raises(make):
+    with pytest.raises(ValueError, match="unknown sample format"):
+        make()
+
+
+def test_routes_follow_the_reference():
+    """uc8 + gate + no Mode A/C is the raw route; anything else the
+    magnitude route; use_gate=None means gated."""
+    kw = dict(device="cpu", use_native=False)
+    assert Demodulator(**kw).raw_route is True
+    assert Demodulator(use_gate=False, **kw).raw_route is False
+    assert Demodulator(modeac=True, **kw).raw_route is False
+    assert MultiDemodulator(2, **kw).raw_route is True
+    assert MultiDemodulator(2, fmt="sc16q11", **kw).raw_route is False
+    with pytest.raises(ValueError, match="raw-UC8 route only"):
+        Demodulator(fmt="sc16", **kw)._process(torch.zeros(4, dtype=torch.uint16), 4)
 
 
 def test_kernels_module_imports_and_build_raises_without_nvcc(tmp_path):
@@ -71,14 +100,61 @@ def test_kernels_module_imports_and_build_raises_without_nvcc(tmp_path):
 
 
 def test_cpu_tensors_take_the_plain_versions_uncounted():
-    before = (kernels.dense_scan_uc8.launches, kernels.extract_syndromes.launches)
+    def counts():
+        return (kernels.dense_scan_uc8.launches, kernels.extract_syndromes.launches,
+                kernels.mag_uc8.launches, kernels.dense_scan.launches)
+
+    before = counts()
     words = torch.full((65536,), 0x8080, dtype=torch.uint16)
     corr, pwords, cs_hi, cs_lo = kernels.dense_scan_uc8(words, 58)
     assert corr.dtype == torch.int8 and tuple(pwords.shape) == (5, 2048)
     rows = torch.zeros((3, 128), dtype=torch.int32)
     out = kernels.extract_syndromes(rows, torch.tensor([0, 7, 300], dtype=torch.int32))
     assert tuple(out.shape) == (3, 128) and not out[:, 80:].any()
-    assert (kernels.dense_scan_uc8.launches, kernels.extract_syndromes.launches) == before
+    mag = kernels.mag_uc8(words[:1001])
+    assert mag.dtype == torch.uint16 and mag.tolist() == [363] * 1001
+    c2, p2, _, _ = kernels.dense_scan(kernels.mag_uc8(words), 58)
+    assert c2.dtype == torch.int8 and tuple(p2.shape) == (5, 2048)
+    assert torch.equal(c2[:-19], corr[:-19])  # the tails differ: 0 against full scale
+    assert counts() == before
+
+
+@pytest.mark.parametrize(
+    "call",
+    [lambda: kernels.mag_uc8(torch.zeros(8, dtype=torch.int32)),
+     lambda: kernels.mag_uc8(torch.zeros((2, 8), dtype=torch.uint16)),
+     lambda: kernels.dense_scan(torch.zeros(1000, dtype=torch.uint16), 58),
+     lambda: kernels.dense_scan(torch.zeros(65536, dtype=torch.int32), 58)],
+    ids=["mag-dtype", "mag-rank", "dense-length", "dense-dtype"],
+)
+def test_new_wrappers_reject_bad_input(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_build_rebuilds_when_a_header_is_newer(tmp_path, monkeypatch):
+    """A library older than a header of csrc/ is stale.  nvcc is absent
+    here, so a script that creates its -o file stands in for it."""
+    import os
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    out = tmp_path / "out"
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(out))
+    monkeypatch.setenv("PATH", f"{tmp_path}/bin:{os.environ['PATH']}")
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
+    nvcc.chmod(0o755)
+    assert sorted(kernels.build()) == sorted(kernels.SOURCES)  # nothing built yet
+    assert kernels.build() == {}  # all fresh
+    later = os.path.getmtime(out / "libmag_uc8.so") + 10
+    os.utime(csrc / "extract_syndromes.cu", (later, later))
+    assert sorted(kernels.build()) == ["extract_syndromes"]  # its source alone
+    os.utime(csrc / "uc8_mag.cuh", (later + 10, later + 10))
+    assert sorted(kernels.build()) == sorted(kernels.SOURCES)  # a header: every library
 
 
 def test_wrap_and_pack_helpers():
