@@ -2,19 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from readsb_tpu_torch/csrc with nvcc
-and drives three paths on the card, each with the launch counts set to 0
+Builds the port's seven CUDA kernels from readsb_tpu_torch/csrc with nvcc
+and drives five paths on the card, each with the launch counts set to 0
 just before and read just after:
 
   raw route        raw UC8 IQ -> MultiDemodulator(64) -> frames
   magnitude route  the same traffic as sc16 -> MultiDemodulator(64, fmt="sc16")
   ungated route    uc8 with Mode-S frames and Mode A/C replies ->
                    Demodulator(fmt="uc8", modeac=True)
+  FUSE_CLASSIFY    the raw route with pipeline.FUSE_CLASSIFY set: the
+                   extraction classifies for the score gate
+                   (extract_classify_v3; once more with the plan-order
+                   kernel extract_classify in its place)
+  USE_FUSED        the raw route with ops.demod.USE_FUSED set: stages 1-4
+                   are one kernel per tile (fused_demod), through
+                   MultiDemodulator(64) and Demodulator(blocks_per_batch=4)
 
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
-and Mode A/C messages against the port's own CPU run, and prints
-per-kernel times and bounds.  The last line is {"ok": true, "device":
+and Mode A/C messages against the port's own CPU run (the two new paths
+against the staged card run, which that CPU run holds), and prints
+per-kernel times and bounds, and one dispatch under each constant.  The last line is {"ok": true, "device":
 {...}}; any failure exits non-zero before it.  Needs a CUDA device;
 imports nothing of JAX.
 """
@@ -32,7 +40,7 @@ import torch
 from readsb_tpu_torch import pipeline
 from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT
 from readsb_tpu_torch.ops import demod as demod_ops
-from readsb_tpu_torch.ops import kernels
+from readsb_tpu_torch.ops import fused, kernels
 from readsb_tpu_torch.ops.convert import mag_uc8_words, uc8_lut_np
 from readsb_tpu_torch.synth import build_standard_capture, quantize_sc16, quantize_uc8
 
@@ -51,8 +59,20 @@ EXTRACT_OPS_PER_CAND = 5 * 112 * 6 + 50
 # per sample of the uc8 magnitude: two table reads, add, min, sqrt, scale,
 # add, cast, pack
 MAG_OPS_PER_SAMPLE = 8
+# per (candidate, phase) of the classifier: three binary searches, five
+# delta compares, the flag word
+CLASSIFY_OPS_PER_CAND = 5 * 60
 MODEAC_CODES = (0x1200, 0x7700, 0x0030, 0x2644)
-KERNEL_NAMES = ("dense_scan_uc8", "extract_syndromes", "mag_uc8", "dense_scan")
+# every kernel's wrapper, which counts its launches
+WRAPPERS = {
+    "dense_scan_uc8": kernels.dense_scan_uc8,
+    "extract_syndromes": kernels.extract_syndromes,
+    "mag_uc8": kernels.mag_uc8,
+    "dense_scan": kernels.dense_scan,
+    "extract_classify_v3": kernels.extract_classify_v3,
+    "extract_classify": kernels.extract_classify,
+    "fused_demod": fused.fused_demod_tiles,
+}
 
 DEV = torch.device("cuda")
 
@@ -132,12 +152,21 @@ def workload(n_blocks: int, seed: int = 3) -> tuple[np.ndarray, np.ndarray, list
 
 
 def reset_counts() -> None:
-    for name in KERNEL_NAMES:
-        getattr(kernels, name).launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def read_counts() -> dict[str, int]:
-    return {name: getattr(kernels, name).launches for name in KERNEL_NAMES}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def check_launched(launches: dict[str, int], used: tuple[str, ...], path: str) -> None:
+    """Exactly the kernels in `used` were launched by the counted run."""
+    for name, count in launches.items():
+        if name in used:
+            check(count > 0, f"kernel {name} was not launched by {path}")
+        else:
+            check(count == 0, f"{path} launched kernel {name} ({count} times)")
 
 
 def run_multi(m, chunks) -> list[list]:
@@ -226,8 +255,7 @@ def main() -> None:
     launches = read_counts()
     log(f"main path: MultiDemodulator({N_CHAN}) k={multi.k} k2={multi.gate_k2} "
         f"launches={launches} in {t_main:.3f} s (first run, builds included)")
-    for name in ("dense_scan_uc8", "extract_syndromes"):
-        check(launches[name] > 0, f"kernel {name} was not launched by the main path")
+    check_launched(launches, ("dense_scan_uc8", "extract_syndromes"), "the main path")
     n_frames = sum(len(f) for f in card_frames)
     check(n_frames > 0, "main path decoded no frames")
 
@@ -271,9 +299,7 @@ def main() -> None:
     launches16 = read_counts()
     log(f"magnitude route: MultiDemodulator({N_CHAN}, fmt='sc16') k={multi16.k} "
         f"k2={multi16.gate_k2} launches={launches16} in {t_main16:.3f} s")
-    for name in ("dense_scan", "extract_syndromes"):
-        check(launches16[name] > 0, f"kernel {name} was not launched by the magnitude route")
-    check(launches16["dense_scan_uc8"] == 0, "the magnitude route ran the raw-route kernel")
+    check_launched(launches16, ("dense_scan", "extract_syndromes"), "the magnitude route")
     t0 = time.perf_counter()
     ref16 = pipeline.MultiDemodulator(
         N_CHAN, fmt="sc16", blocks_per_batch=1, use_native=True, device="cpu"
@@ -313,8 +339,8 @@ def main() -> None:
     d_ac, f_ac = run_ac(DEV)
     torch.cuda.synchronize()
     launches_ac = read_counts()
-    for name in ("mag_uc8", "dense_scan", "extract_syndromes"):
-        check(launches_ac[name] > 0, f"kernel {name} was not launched by the ungated route")
+    check_launched(launches_ac, ("mag_uc8", "dense_scan", "extract_syndromes"),
+                   "the ungated route")
     r_ac, rf_ac = run_ac("cpu")
     check(frame_key(f_ac) == frame_key(rf_ac), "ungated route: card frames differ from CPU run")
     check(stats_key(d_ac.stats) == stats_key(r_ac.stats), "ungated route: stats differ")
@@ -335,6 +361,68 @@ def main() -> None:
         f"modeac_k={d_ac.modeac_k} launches={launches_ac}; {len(f_ac)} frames "
         f"({rec_ac}/{tot_ac} truth) and {len(ac_key)}/{len(t_replies)} Mode A/C replies "
         f"== CPU run")
+
+    # --- FUSE_CLASSIFY path at full width: the raw route, classifying kernel ----
+    def same_as_staged(frames, m, what: str) -> None:
+        """Per channel, frames and stats equal the staged card run's (which
+        the CPU run above holds)."""
+        for c in range(N_CHAN):
+            check(frame_key(frames[c]) == frame_key(card_frames[c]),
+                  f"{what} channel {c}: frames differ from the staged card run")
+            check(stats_key(m.channel_stats(c)) == stats_key(multi.channel_stats(c)),
+                  f"{what} channel {c}: stats differ from the staged card run")
+
+    def counted_multi():
+        m = pipeline.MultiDemodulator(N_CHAN, blocks_per_batch=1, use_native=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = run_multi(m, chunks)
+        torch.cuda.synchronize()
+        return m, frames, read_counts(), time.perf_counter() - t0
+
+    pipeline.FUSE_CLASSIFY = True
+    try:
+        multi_fc, frames_fc, launches_fc, t_fc = counted_multi()
+        # once more with the plan-order kernel in the classifying kernel's place
+        v3 = kernels.extract_classify_v3
+        kernels.extract_classify_v3 = kernels.extract_classify
+        try:
+            multi_v2, frames_v2, launches_v2, t_v2 = counted_multi()
+        finally:
+            kernels.extract_classify_v3 = v3
+    finally:
+        pipeline.FUSE_CLASSIFY = False
+    check_launched(launches_fc, ("dense_scan_uc8", "extract_classify_v3"), "the FUSE_CLASSIFY path")
+    check_launched(launches_v2, ("dense_scan_uc8", "extract_classify"),
+                   "the FUSE_CLASSIFY path with the plan-order kernel")
+    same_as_staged(frames_fc, multi_fc, "FUSE_CLASSIFY")
+    same_as_staged(frames_v2, multi_v2, "FUSE_CLASSIFY (plan-order kernel)")
+    log(f"FUSE_CLASSIFY path: MultiDemodulator({N_CHAN}) k={multi_fc.k} launches="
+        f"{launches_fc} in {t_fc:.3f} s; with extract_classify in its place launches="
+        f"{launches_v2} in {t_v2:.3f} s; frames and stats per channel == staged card run")
+
+    # --- USE_FUSED path at full width: stages 1-4 in one kernel per tile --------
+    demod_ops.USE_FUSED = True
+    try:
+        multi_fu, frames_fu, launches_fu, t_fu = counted_multi()
+        d_fu = pipeline.Demodulator(blocks_per_batch=4, use_native=True)
+        f_fu = d_fu.feed(raw1) + d_fu.flush()
+        launches_fu1 = read_counts()
+    finally:
+        demod_ops.USE_FUSED = False
+    check_launched(launches_fu, ("mag_uc8", "fused_demod"), "the USE_FUSED path")
+    check(not multi_fu._force_staged, "the USE_FUSED path overflowed and went staged")
+    same_as_staged(frames_fu, multi_fu, "USE_FUSED")
+    check(launches_fu1["fused_demod"] > launches_fu["fused_demod"] and not d_fu._force_staged,
+          "USE_FUSED Demodulator did not stay on the fused kernel")
+    check(frame_key(f_fu) == frame_key(f_card) and stats_key(d_fu.stats) == stats_key(d_card.stats),
+          "USE_FUSED Demodulator: frames or stats differ from the staged card run")
+    log(f"USE_FUSED path: MultiDemodulator({N_CHAN}) k={multi_fu.k} "
+        f"cap={max(128, multi_fu.k // -(-multi_fu.scan_len // fused.TILE))} launches="
+        f"{launches_fu} in {t_fu:.3f} s; Demodulator(blocks_per_batch=4) "
+        f"cap={max(128, d_fu.k // 8)}: {len(f_fu)} frames; both == staged card run, "
+        f"neither went staged")
 
     # --- kernels against their plain versions at the main path's shapes -------
     first = np.stack([np.frombuffer(ch, dtype="<u2", count=BLOCK_SAMPLES) for ch in chunks])
@@ -357,6 +445,54 @@ def main() -> None:
     err_ex = max_abs_err([ex_k], [ex_p])
     check(err_ex == 0, f"extract_syndromes differs from its plain version (max {err_ex})")
     log(f"kernels == plain versions at n={n} samples, K={rows.shape[0]} rows")
+
+    # kernels #5 and #6 at the same rows, against their plain versions and
+    # each other; the known table is the one the main run ended with
+    tbl = multi.mirror.tbl
+    check(int((tbl < 0x1000000).sum()) > 0, "the known table is empty")
+    cls_k = kernels.extract_classify_v3(rows, offsets, tbl, nfix=multi.nfix, fix_df=multi.fix_df)
+    cls_p = kernels.extract_classify_v3_plain(rows, offsets, tbl, nfix=multi.nfix,
+                                              fix_df=multi.fix_df)
+    err_cls = max_abs_err([cls_k], [cls_p])
+    check(err_cls == 0, f"extract_classify_v3 differs from its plain version (max {err_cls})")
+    cls2_k = kernels.extract_classify(rows, offsets, tbl, nfix=multi.nfix, fix_df=multi.fix_df)
+    cls2_p = kernels.extract_classify_plain(rows, offsets, tbl, nfix=multi.nfix,
+                                            fix_df=multi.fix_df)
+    err_cls2 = max(max_abs_err([cls2_k], [cls2_p]), max_abs_err([cls2_k], [cls_k]))
+    check(err_cls2 == 0, f"extract_classify differs from its plain version or from "
+                         f"extract_classify_v3 (max {err_cls2})")
+    check(max_abs_err([cls_k[:, :83]], [ex_k[:, :83]]) == 0,
+          "extract_classify_v3 lanes 0:83 differ from extract_syndromes")
+    flag_counts = [int(((cls_k[:, 83:88] & b) != 0).sum()) for b in (1, 2, 4, 8, 16)]
+    check(flag_counts[0] > 0 and flag_counts[2] > 0, f"no classifier flag fired: {flag_counts}")
+    del cls_p, cls2_p, cls2_k
+    log(f"extract_classify_v3 == extract_classify == plain versions at K={rows.shape[0]}, "
+        f"T={tbl.shape[0]}; flags set (in_t112, in_t56, in_tbl, fix_ok, zero7): {flag_counts}")
+
+    # kernel #7 at the USE_FUSED path's shape: the converted buffer, whole
+    # tiles over the scan range plus the last tile's halo, the path's cap
+    ntiles = -(-multi.scan_len // fused.TILE)
+    cap = max(128, multi.k // ntiles)
+    n_fused = ntiles * fused.TILE + fused.HALO
+    mag_f = torch.zeros(n_fused, dtype=torch.uint16, device=DEV)
+    mag_f[: buf.shape[0]] = kernels.mag_uc8(buf)
+    fused_kw = dict(cap=cap, seg_stride=multi.seg_stride, seg_valid=multi.seg_valid,
+                    scan_limit=multi.scan_len)
+    fu_k = fused.fused_demod_tiles(mag_f, thr, **fused_kw)
+    fu_p = fused.fused_demod_tiles_plain(mag_f, thr, **fused_kw)
+    err_fu = max_abs_err(fu_k, fu_p)
+    check(err_fu == 0, f"fused_demod differs from its plain version (max {err_fu})")
+    meta = fu_k[3]
+    n_live = int(fu_k[2].sum())
+    check(n_live == int(meta[:, 0].sum()) > 0, "fused_demod: live rows != candidates")
+    check(max_abs_err([fu_k[0][fu_k[2]][:, :83]], [ex_k[:n_live, :83]]) == 0
+          and max_abs_err([fu_k[1][fu_k[2]]], [offsets[:n_live]]) == 0,
+          "fused_demod's live rows differ from the staged extraction")
+    log(f"fused_demod == plain at n={n_fused} ({ntiles} tiles + halo), cap={cap}: "
+        f"{n_live} candidates, most per tile {int(meta[:, 0].max())}, per 256-sample block "
+        f"{int(meta[:, 1].max())}, per 128-sample row {int(meta[:, 2].max())}; live rows == "
+        f"staged offsets and extraction")
+    del fu_p
 
     # kernel #4 at the magnitude route's shape: 64 channels of sc16 magnitudes
     first16 = np.stack([np.frombuffer(ch, dtype=np.uint8, count=BLOCK_SAMPLES * 4)
@@ -422,10 +558,30 @@ def main() -> None:
                       [kernels.mag_uc8(words_flat)]) == 0, "the LUT gather differs from mag_uc8")
     lib_mag = time_ms(lambda: lut_dev[lut_idx], inner=20)
     del w64
+    cls_args = (rows, offsets, tbl)
+    cls_kw = dict(nfix=multi.nfix, fix_df=multi.fix_df)
+    ms_cls = time_ms(lambda: kernels.extract_classify_v3(*cls_args, **cls_kw), inner=5)
+    ms_cls2 = time_ms(lambda: kernels.extract_classify(*cls_args, **cls_kw), inner=5)
+    ms_ex5 = time_ms(lambda: kernels.extract_syndromes(rows, offsets), inner=5)
+    plain_cls = time_ms(lambda: kernels.extract_classify_v3_plain(*cls_args, **cls_kw), reps=5)
+    plain_cls2 = time_ms(lambda: kernels.extract_classify_plain(*cls_args, **cls_kw), reps=5)
+    dev_ex = device_ms(lambda: kernels.extract_syndromes(rows, offsets), ("rows_kernel",))
+    dev_cls = device_ms(lambda: kernels.extract_classify_v3(*cls_args, **cls_kw), ("rows_kernel",))
+    dev_cls2 = device_ms(lambda: kernels.extract_classify(*cls_args, **cls_kw), ("warp_kernel",))
+    ms_fu = time_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw))
+    plain_fu = time_ms(lambda: fused.fused_demod_tiles_plain(mag_f, thr, **fused_kw), reps=5)
+    dev_fu = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
+                       ("fused_tile", "block_sums", "scan_totals"))
+    dev_fu_tile = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
+                            ("fused_tile",))
     k_rows = rows.shape[0]
     dense_bytes = n * 2 + n * 1 + 5 * (n // 32) * 4 + 2 * n * 4
     ex_bytes = k_rows * (128 * 4 + 4 + 128 * 4)
     mag_bytes = n_mag * 4
+    cls_bytes = ex_bytes + tbl.shape[0] * 4
+    fu_rows = ntiles * cap
+    # magnitudes in; prefix sums, rows, offsets, live and meta out
+    fu_bytes = n_fused * 2 + 2 * n_fused * 4 + fu_rows * (128 * 4 + 4 + 1) + ntiles * 12
 
     def bound(nbytes: int, ops: int) -> tuple[float, str]:
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -435,11 +591,19 @@ def main() -> None:
     b_dense, by_dense = bound(dense_bytes, n * DENSE_OPS_PER_SAMPLE)
     b_ex, by_ex = bound(ex_bytes, k_rows * EXTRACT_OPS_PER_CAND)
     b_mag, by_mag = bound(mag_bytes, n_mag * MAG_OPS_PER_SAMPLE)
+    b_cls, by_cls = bound(cls_bytes, k_rows * (EXTRACT_OPS_PER_CAND + CLASSIFY_OPS_PER_CAND))
+    b_fu, by_fu = bound(
+        fu_bytes, ntiles * (fused.TILE + fused.HALO) * DENSE_OPS_PER_SAMPLE
+        + fu_rows * EXTRACT_OPS_PER_CAND,
+    )
     for name, ms, pms, b, nbytes in (
         ("dense_scan_uc8", ms_dense, plain_dense, b_dense, dense_bytes),
         ("extract_syndromes", ms_ex, plain_ex, b_ex, ex_bytes),
         ("mag_uc8", ms_mag, plain_mag, b_mag, mag_bytes),
         ("dense_scan", ms_densem, plain_densem, b_dense, dense_bytes),
+        ("extract_classify_v3", ms_cls, plain_cls, b_cls, cls_bytes),
+        ("extract_classify", ms_cls2, plain_cls2, b_cls, cls_bytes),
+        ("fused_demod", ms_fu, plain_fu, b_fu, fu_bytes),
     ):
         log(f"{name}: {ms:.4f} ms (plain {pms:.3f} ms, bound {b:.4f} ms for "
             f"{nbytes / 1e6:.1f} MB, {b / ms * 100:.1f}% of the bound) on {card}")
@@ -451,6 +615,14 @@ def main() -> None:
         f"dense_scan_uc8 {dev_dense:.4f} ms (three kernels each) on {card}")
     log(f"dense_scan / dense_scan_uc8 = {ms_densem / ms_dense:.3f} by events, "
         f"{dev_densem / dev_dense:.3f} by device time (same bytes, no convert)")
+
+    log(f"extraction A/B at K={k_rows}, 5 back-to-back launches: extract_syndromes "
+        f"{ms_ex5:.4f} ms, extract_classify_v3 {ms_cls:.4f} ms ({ms_cls / ms_ex5:.3f}x), "
+        f"extract_classify {ms_cls2:.4f} ms ({ms_cls2 / ms_cls:.3f}x of v3); device time alone "
+        f"{dev_ex:.4f} / {dev_cls:.4f} / {dev_cls2:.4f} ms on {card}")
+    log(f"fused_demod: device time alone {dev_fu:.4f} ms (tile kernel {dev_fu_tile:.4f} ms) "
+        f"against dense_scan + extract_syndromes {dev_densem + dev_ex:.4f} ms of the stages it "
+        f"replaces (their torch stages not counted) on {card}")
 
     # --- end to end -----------------------------------------------------------
     def dispatch():
@@ -467,6 +639,33 @@ def main() -> None:
     log(f"profile of one dispatch: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({busy / wall * 100:.1f}%), {sum(r[1] for r in rows)} device launches; top:")
     for ms, cnt, name in rows[:12]:
+        log(f"  {ms:8.4f} ms  x{cnt:<4d} {name[:90]}")
+    # the same dispatch under each constant, beside the staged one
+    pipeline.FUSE_CLASSIFY = True
+    try:
+        ms_dispatch_fc = time_ms(dispatch, reps=10)
+        wall_fc, busy_fc, rows_fc = profile_dispatch(dispatch)
+    finally:
+        pipeline.FUSE_CLASSIFY = False
+    demod_ops.USE_FUSED = True
+    try:
+        check(int(dispatch().fused_overflow) <= 0, "the fused dispatch overflowed")
+        ms_dispatch_fu = time_ms(dispatch, reps=10)
+        wall_fu, busy_fu, rows_fu = profile_dispatch(dispatch)
+    finally:
+        demod_ops.USE_FUSED = False
+    ms_dispatch_again = time_ms(dispatch, reps=10)
+    for what, ms_d, wall_d, busy_d, rows_d in (
+        ("staged", ms_dispatch, wall, busy, rows),
+        ("FUSE_CLASSIFY", ms_dispatch_fc, wall_fc, busy_fc, rows_fc),
+        ("USE_FUSED", ms_dispatch_fu, wall_fu, busy_fu, rows_fu),
+    ):
+        log(f"dispatch {what}: {ms_d:.3f} ms by events (median of 10); under the profiler "
+            f"wall {wall_d:.3f} ms, device busy {busy_d:.3f} ms ({busy_d / wall_d * 100:.1f}%), "
+            f"{sum(r[1] for r in rows_d)} device launches on {card}")
+    log(f"dispatch staged, timed again after the two: {ms_dispatch_again:.3f} ms")
+    log("profile of one USE_FUSED dispatch, top:")
+    for ms, cnt, name in rows_fu[:8]:
         log(f"  {ms:8.4f} ms  x{cnt:<4d} {name[:90]}")
     samples = N_CHAN * BLOCK_SAMPLES
     feeds = []
@@ -566,6 +765,30 @@ def main() -> None:
             "launches": launches16["dense_scan"], "max_abs_err": err_densem,
             "ms": ms_densem, "plain_ms": plain_densem, "bound_ms": b_dense,
             "bound_by": by_dense, "library_ms": None, "device_ms": dev_densem,
+        },
+        {
+            "name": "extract_classify_v3", "route": "cuda",
+            "source": "readsb_tpu_torch/csrc/extract_classify_v3.cu",
+            "replaces": "readsb_tpu/ops/pallas_kernels.py:847",
+            "launches": launches_fc["extract_classify_v3"], "max_abs_err": err_cls,
+            "ms": ms_cls, "plain_ms": plain_cls, "bound_ms": b_cls,
+            "bound_by": by_cls, "library_ms": None, "device_ms": dev_cls,
+        },
+        {
+            "name": "extract_classify", "route": "cuda",
+            "source": "readsb_tpu_torch/csrc/extract_classify.cu",
+            "replaces": "readsb_tpu/ops/pallas_kernels.py:928",
+            "launches": launches_v2["extract_classify"], "max_abs_err": err_cls2,
+            "ms": ms_cls2, "plain_ms": plain_cls2, "bound_ms": b_cls,
+            "bound_by": by_cls, "library_ms": None, "device_ms": dev_cls2,
+        },
+        {
+            "name": "fused_demod", "route": "cuda",
+            "source": "readsb_tpu_torch/csrc/fused_demod.cu",
+            "replaces": "readsb_tpu/ops/fused.py:304",
+            "launches": launches_fu["fused_demod"], "max_abs_err": err_fu,
+            "ms": ms_fu, "plain_ms": plain_fu, "bound_ms": b_fu,
+            "bound_by": by_fu, "library_ms": None, "device_ms": dev_fu,
         },
     ]}), flush=True)
     print(card, flush=True)

@@ -1,0 +1,48 @@
+// Per-candidate extraction fused with the gate's per-phase classification
+// for Hopper (sm_90a).
+//
+// Replaces readsb_tpu/ops/pallas_kernels.py::extract_classify_v3_pallas
+// (:847; kernel body _extract_kernel_v3 :803, classifier _classify_block
+// :762).  Contract (readsb_tpu_torch/ops/kernels.py::extract_classify_v3):
+//
+//   rows     int32[K,128]  candidate win rows (ops/demod.py::win_rows)
+//   offsets  int32[K]      candidate scan offsets
+//   known    int32[T]      sorted known-ICAO addresses, sentinel-padded
+//   t112/t56/dfd           the static tables of ops/gate.py::gate_tables_np
+//   out      int32[K,128]  lanes 0:83 as extract_syndromes, 83:88 the
+//                          per-phase flag word (classify.cuh), 88:128 zero
+//
+// Bound on the H100: memory, 1028 B per candidate as extract_syndromes;
+// the tables are read from cache.  The TPU kernel is its v1 extraction
+// plus a classification block, and so is this one: extract.cuh's
+// rows_kernel (32 candidates per block, one warp per phase, one lane per
+// candidate) with classify::Post after the slice.  When its loop ends a
+// thread already holds its phase's syn112, syn56 and first message bytes
+// in registers, so the flag word costs three binary searches (<= 13 steps
+// each at nfix = 2) and no further memory traffic of its own.
+
+#include "classify.cuh"
+#include "extract.cuh"
+
+extern "C" const char* rtpu_cuda_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" int rtpu_extract_set_tables(const void* tap, const void* syn112,
+                                       const void* syn56) {
+    return extract::set_tables(tap, syn112, syn56);
+}
+
+extern "C" int extract_classify_v3(const void* rows, const void* offsets, long long k,
+                                   const void* known, int n_known,
+                                   const void* t112, int n112,
+                                   const void* t56, int n56, const void* dfd,
+                                   void* out, void* stream) {
+    const classify::Post post{{
+        static_cast<const int32_t*>(known), n_known,
+        static_cast<const int32_t*>(t112), n112,
+        static_cast<const int32_t*>(t56), n56,
+        static_cast<const int32_t*>(dfd),
+    }};
+    return extract::launch_rows(rows, offsets, k, out, post, stream);
+}

@@ -14,6 +14,15 @@ Stages of one dispatch:
      112 bits, CRC-24 syndromes, message bytes, correlation bits
   (5 the score gate, ops/gate.py, and the host finalizer follow)
 
+Two alternative device routes, both off unless their module constant is
+set, as in readsb_tpu:
+
+  pipeline.FUSE_CLASSIFY  stage 4 runs kernels.extract_classify_v3 and the
+     score gate reads its per-phase flags instead of searching the tables
+  USE_FUSED (below)       stages 1-4 are one kernel per 65536-sample tile
+     (ops/fused.py), with a return to the staged route when a tile
+     overflows its capacities
+
 Numerology is bit-exact with the reference demodulator (wiedehopf/readsb
 demod_2400.c) and with readsb_tpu.ops.demod:
 - pre-check pa[1]>pa[7] && pa[12]>pa[14] && pa[12]>pa[15] (demod_2400.c:311)
@@ -55,6 +64,9 @@ _BYTE_SCHED = {
 }
 
 NUM_PHASES = 5  # try_phase 4..8
+# Fused per-tile demodulator (ops/fused.py): dense scan + in-tile
+# compaction + extraction in one kernel.  Off by default, as in readsb_tpu.
+USE_FUSED = False
 MAX_TAPS = 4
 SLICE_WINDOW = 320  # max sample offset read by any tap, padded
 SIG_LONG = 112 * 12 // 5  # 268 samples of message body (demod_2400.c:436)
@@ -130,6 +142,52 @@ def _combined_matrix() -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def extract_plan_lanes() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The 560 emission lanes of the plan-order extraction
+    (kernels.extract_classify): (word, shift, col) int32[560] each.
+
+    After a candidate's window is word-rotated and bit-shifted by
+    (offset & 255), every slicer bit lives at a static position: bit
+    `shift` of aligned window word `word` = plane * 11 + word_j.  Lanes are
+    emitted grouped by (plane, word_j), ascending; col = phase * 112 +
+    message bit says which bit a lane carries.
+    """
+    aoff, kid = lattice_tables()
+    lanes = sorted(
+        (int(kid[p, b]) * 11 + (int(aoff[p, b]) >> 5), p * MODES_LONG_MSG_BITS + b)
+        for p in range(NUM_PHASES)
+        for b in range(MODES_LONG_MSG_BITS)
+    )  # by word, then by column: the order of readsb_tpu's _extract_plan
+    word = np.array([w for w, _ in lanes], np.int32)
+    col = np.array([c for _, c in lanes], np.int32)
+    shift = (aoff.reshape(-1)[col] & 31).astype(np.int32)
+    return word, shift, col
+
+
+@functools.lru_cache(maxsize=None)
+def _extract_plan():
+    """Pick schedule + permuted product matrix, in readsb_tpu's form.
+
+    Returns (plan, m) where plan = [(plane, word_j, shifts int32[g])...]
+    in emission order and m = f32[560, 310] with column block
+    p*62:(p+1)*62 equal to _combined_matrix rows for phase p's bits: the
+    column permutation of the grouped emission is folded into the matrix,
+    so the product's outputs are unchanged.
+    """
+    word, shift, col = extract_plan_lanes()
+    plan = [
+        (int(w) // 11, int(w) % 11, shift[word == w])
+        for w in np.unique(word)
+    ]
+    comb = _combined_matrix()  # (112, 62)
+    m = np.zeros((NUM_PHASES * MODES_LONG_MSG_BITS, NUM_PHASES * 62), np.float32)
+    for row, c in enumerate(col):
+        p, b = divmod(int(c), MODES_LONG_MSG_BITS)
+        m[row, p * 62 : (p + 1) * 62] = comb[b]
+    return plan, m
+
+
 def _dense_stages(buf: torch.Tensor, threshold: int):
     """Plain dense scan of magnitudes (uint16[n], any n), the contract of
     readsb_tpu's _dense_stages_jnp: corrbits are 0 from n - 19 on and plane
@@ -191,6 +249,15 @@ class BlockCandidates(NamedTuple):
     syn56: torch.Tensor  # int32[K, 5] CRC syndrome over first 56 bits
     sig_long: torch.Tensor  # int32[K, 2] (hi, lo) exact split sum of mag^2, 268 samples
     sig_short: torch.Tensor  # int32[K, 2] (hi, lo) over the first 134 samples
+    # classifier flags of kernels.extract_classify_v3 (lanes 83:88), or None:
+    # int32[K, 5] per-phase bitmask 1=in_t112 2=in_t56 4=in_tbl 8=fix_ok 16=zero7
+    flags: torch.Tensor | None = None
+    # fused route (ops/fused.py): bool[K] live mask (rows that are not live
+    # carry their tile's end as offset, so the list stays nondecreasing) and
+    # an overflow scalar int32[] (> 0: a tile's or a 128-sample row's
+    # capacity was exceeded and the caller redoes the block staged)
+    live: torch.Tensor | None = None
+    fused_overflow: torch.Tensor | None = None
 
     @property
     def sigsum_long(self) -> np.ndarray:
@@ -328,12 +395,27 @@ def _demod_core(
     seg_stride: int | None = None,
     seg_valid: int | None = None,
     raw_uc8: bool = False,
+    known_tbl: torch.Tensor | None = None,
+    nfix: int = 1,
+    fix_df: bool = True,
+    force_staged: bool = False,
 ):
     """Stages 1-4 of the demodulator (everything except signal power).
 
     raw_uc8=True: buf is uint16 IQ *words* and the fused convert + dense
     scan kernel runs; otherwise buf holds uint16 magnitudes (the magnitude
     route).
+
+    known_tbl (sorted, sentinel-padded known-ICAO addresses): when given,
+    stage 4 runs kernels.extract_classify_v3 and the BlockCandidates carry
+    its per-phase flags, which ops.gate.score_gate then reads instead of
+    searching the tables itself.  nfix / fix_df select that kernel's
+    static tables.
+
+    With USE_FUSED set and force_staged False, stages 1-4 are
+    fused.fused_demod_tiles: raw words are first converted
+    (kernels.mag_uc8), the result has ntiles * cap rows instead of k, with
+    `live` and `fused_overflow` set.
 
     Returns (BlockCandidates with zeroed sig fields, cs_hi, cs_lo).
 
@@ -352,25 +434,72 @@ def _demod_core(
         or scan_len % seg_stride
     ):
         raise ValueError(f"bad channel layout {seg_stride=} {seg_valid=} {scan_len=}")
+    if USE_FUSED and not force_staged:
+        return _demod_core_fused(
+            buf, threshold, k=k, scan_len=scan_len,
+            seg_stride=seg_stride, seg_valid=seg_valid, raw_uc8=raw_uc8,
+        )
     corrbits, pwords, cs_hi, cs_lo = dense_stage(buf, threshold, raw_uc8=raw_uc8)
     offsets, n_cand, max_local, rows = candidate_rows(
         corrbits, pwords, k=k, l=l, scan_len=scan_len,
         seg_stride=seg_stride, seg_valid=seg_valid,
     )
-    comb = kernels.extract_syndromes(rows, offsets)  # stage 4
-    zeros2 = torch.zeros((k, 2), dtype=torch.int32, device=buf.device)
-    bc = BlockCandidates(
+    if known_tbl is not None:  # stage 4 with the gate's classification fused in
+        comb = kernels.extract_classify_v3(rows, offsets, known_tbl, nfix=nfix, fix_df=fix_df)
+        flags = comb[:, 83:88]
+    else:
+        comb = kernels.extract_syndromes(rows, offsets)  # stage 4
+        flags = None
+    bc = _candidates_of(comb, offsets, n_cand, max_local, offsets < scan_len)
+    return bc._replace(flags=flags), cs_hi, cs_lo
+
+
+def _candidates_of(comb, offsets, n_cand, max_local, fired_mask) -> BlockCandidates:
+    """BlockCandidates from the extraction's int32[K,128] rows (zeroed sig
+    fields); correlation bits count only where fired_mask bool[K] is set."""
+    k = comb.shape[0]
+    zeros2 = torch.zeros((k, 2), dtype=torch.int32, device=comb.device)
+    return BlockCandidates(
         offsets=offsets,
         n_cand=n_cand,
         max_local=max_local,
-        corr_fired=(comb[:, 80:83] != 0) & (offsets < scan_len)[:, None],
+        corr_fired=(comb[:, 80:83] != 0) & fired_mask[:, None],
         msg=comb[:, 10:80].reshape(k, NUM_PHASES, 14).to(torch.uint8),
         syn112=comb[:, 0:5],
         syn56=comb[:, 5:10],
         sig_long=zeros2,
         sig_short=zeros2,
     )
-    return bc, cs_hi, cs_lo
+
+
+def _demod_core_fused(
+    buf, threshold, *, k: int, scan_len: int, seg_stride, seg_valid, raw_uc8: bool
+):
+    """Stages 1-4 as one kernel per tile (the USE_FUSED route).
+
+    The capacity is per tile, cap = max(128, k // ntiles); a tile with more
+    candidates, or a 128-sample row with more than fused.L_ROW, reports
+    fused_overflow > 0 and the caller redoes the block staged."""
+    from . import fused
+
+    mag = kernels.mag_uc8(buf) if raw_uc8 else buf
+    ntiles = -(-scan_len // fused.TILE)
+    # whole tiles over the scan range plus the last tile's halo: a window
+    # that starts below scan_len reads the samples after it, not zeros
+    padded = ntiles * fused.TILE + fused.HALO
+    magp = torch.zeros(padded, dtype=torch.uint16, device=buf.device)
+    m = min(padded, mag.shape[0])
+    magp[:m] = mag[:m]
+    cap = max(128, k // ntiles)
+    comb, offsets, live, meta, cs_hi, cs_lo = fused.fused_demod_tiles(
+        magp, threshold, cap=cap, seg_stride=seg_stride, seg_valid=seg_valid,
+        scan_limit=scan_len,
+    )
+    overflow = torch.maximum(meta[:, 0].max() - cap, meta[:, 2].max() - fused.L_ROW)
+    bc = _candidates_of(
+        comb, offsets, meta[:, 0].sum(dtype=torch.int32), meta[:, 1].max(), live
+    )
+    return bc._replace(live=live, fused_overflow=overflow), cs_hi, cs_lo
 
 
 def demod_block(
@@ -380,14 +509,19 @@ def demod_block(
     k: int = 2048,
     scan_len: int | None = None,
     l: int = 64,
+    force_staged: bool = False,
 ) -> BlockCandidates:
     """Demodulate one magnitude block (see _demod_core).
 
     buf: uint16[scan_len + TRAILING_SAMPLES] magnitudes.  Scan offsets
-    0..scan_len-1 are candidate positions.
+    0..scan_len-1 are candidate positions.  Under USE_FUSED the rows that
+    are not `live` have no correlation bit set, so a finalizer passes over
+    them.
     """
     if scan_len is None:
         scan_len = buf.shape[0] - TRAILING_SAMPLES
-    bc, cs_hi, cs_lo = _demod_core(buf, threshold, k=k, scan_len=scan_len, l=l)
+    bc, cs_hi, cs_lo = _demod_core(
+        buf, threshold, k=k, scan_len=scan_len, l=l, force_staged=force_staged
+    )
     sig_long, sig_short = window_sums(bc.offsets, cs_hi, cs_lo)
     return bc._replace(sig_long=sig_long, sig_short=sig_short)

@@ -24,6 +24,11 @@ host would provably reject (score -1/-2):
 If the in-block teach-set overflows its capacity, membership degrades to
 "known" for everyone (pass-through) — more transfer, same semantics.
 Table membership is a binary search (torch.searchsorted) in sorted tables.
+
+When the candidates carry per-phase flags (kernels.extract_classify_v3
+under pipeline.FUSE_CLASSIFY), the memberships in the static tables and in
+the known table, fix_ok and zero7 come from the flags; classify_plain is
+the same classification in PyTorch and gate_tables_np the kernel's tables.
 """
 
 from __future__ import annotations
@@ -61,6 +66,76 @@ def _isin_sorted(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[i] == x
 
 
+GATE_SENTINEL = 0x2000000  # > any syndrome or residual: pads the static tables
+
+
+@functools.lru_cache(maxsize=None)
+def gate_tables_np(nfix: int, fix_df: bool) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(t112, t56, dfd) int32: the classifier's static tables, as
+    readsb_tpu's _gate_tables_np.  t112 / t56: the sorted nfix-bit error
+    table syndromes padded with GATE_SENTINEL to a multiple of 128 (all
+    sentinel for nfix == 0).  dfd int32[128]: 0..4 the DF17-fixable delta
+    syndromes, 5..9 their df values, 10 = nfix > 0, 11 = fix_df and
+    nfix > 0, the rest sentinel."""
+
+    def padded(a):
+        out = np.full(max(128, -(-len(a) // 128) * 128), GATE_SENTINEL, np.int32)
+        out[: len(a)] = a
+        return out
+
+    empty = np.zeros(0, np.int32)
+    t112 = padded(_table_syndromes_np(112, nfix) if nfix > 0 else empty)
+    t56 = padded(_table_syndromes_np(56, nfix) if nfix > 0 else empty)
+    dfd = np.full(128, GATE_SENTINEL, np.int32)
+    deltas = _df_delta_np()
+    for i, d in enumerate(_DF17_FIXABLE):
+        dfd[i] = int(deltas[d])
+        dfd[5 + i] = d
+    dfd[10] = 1 if nfix > 0 else 0
+    dfd[11] = 1 if (fix_df and nfix > 0) else 0
+    return t112, t56, dfd
+
+
+def classify_plain(
+    syn112: torch.Tensor,
+    syn56: torch.Tensor,
+    msg: torch.Tensor,
+    known_tbl: torch.Tensor,
+    nfix: int,
+    fix_df: bool,
+) -> torch.Tensor:
+    """Per-phase classifier flags int32[K,5], readsb_tpu's _classify_block:
+    1 in_t112, 2 in_t56, 4 in_tbl, 8 fix_ok, 16 zero7.
+
+    syn112 / syn56 [K,5], msg [K,70] or [K,5,14] message bytes (any integer
+    type), known_tbl sorted int32[T] padded with TBL_SENTINEL.
+    """
+    dev = syn112.device
+    k = syn112.shape[0]
+    s112 = syn112.to(torch.int32)
+    s56 = syn56.to(torch.int32)
+    msg = msg.reshape(k, 5, 14).to(torch.int32)
+    df = msg[:, :, 0] >> 3
+    t112, t56, dfd = gate_tables_np(nfix, fix_df)
+    have_tab, have_fix = bool(dfd[10]), bool(dfd[11])
+    in_t112 = _isin_sorted(s112, torch.from_numpy(t112).to(dev)) & have_tab
+    in_t56 = _isin_sorted(s56, torch.from_numpy(t56).to(dev)) & have_tab
+    residual = torch.where(df >= 16, s112, s56) & 0xFFFFFF
+    in_tbl = _isin_sorted(residual, known_tbl)
+    fix_ok = torch.zeros_like(df, dtype=torch.bool)
+    if have_fix:
+        for i in range(5):
+            fix_ok |= (df == int(dfd[5 + i])) & (s112 == int(dfd[i]))
+    zero7 = msg[:, :, :7].sum(2) == 0
+    return (
+        in_t112.to(torch.int32)
+        | (in_t56.to(torch.int32) << 1)
+        | (in_tbl.to(torch.int32) << 2)
+        | (fix_ok.to(torch.int32) << 3)
+        | (zero7.to(torch.int32) << 4)
+    )
+
+
 class GatedCandidates(NamedTuple):
     offsets: torch.Tensor  # int32[K2] scan offsets of kept candidates (sentinel scan_len)
     n_cand: torch.Tensor  # int32[] total candidates pre-gate (k-overflow check)
@@ -85,6 +160,9 @@ class GatedCandidates(NamedTuple):
     # cumulative (pre, unknown, bad) drop counts at channel starts — the
     # host derives exact per-channel stats by differencing
     drop_cum_chan: torch.Tensor  # int32[3, C+1]
+    # the fused route's overflow scalar, passed through
+    # (BlockCandidates.fused_overflow): > 0 => redo the block staged
+    fused_overflow: torch.Tensor | None = None
 
 
 def score_gate(
@@ -121,28 +199,46 @@ def score_gate(
         valid = (offs < scan_len) & ((offs % seg_stride) < valid_len)
     else:
         valid = offs < valid_len
+    if bc.live is not None:
+        # fused route: rows that are not live carry their tile's end as
+        # offset (the list stays nondecreasing); only live rows are candidates
+        valid = valid & bc.live
     msg = bc.msg.to(torch.int32)
     df = msg[:, :, 0] >> 3  # (K,5)
     aa = (msg[:, :, 1] << 16) | (msg[:, :, 2] << 8) | msg[:, :, 3]
     syn112 = bc.syn112
     syn56 = bc.syn56
     fired = bc.corr_fired[:, [0, 0, 1, 1, 2]]
-    zero7 = msg[:, :, :7].sum(2) == 0  # all-zero message
 
-    # --- syndrome table membership ---------------------------------------
-    if nfix > 0:
-        in_t112 = _isin_sorted(syn112, torch.from_numpy(_table_syndromes_np(112, nfix)).to(dev))
-        in_t56 = _isin_sorted(syn56, torch.from_numpy(_table_syndromes_np(56, nfix)).to(dev))
+    if bc.flags is not None:
+        # the extraction kernel already classified each phase
+        # (kernels.extract_classify_v3); unpack its per-phase flag bitmask
+        fl = bc.flags
+        in_t112 = (fl & 1) != 0
+        in_t56 = (fl & 2) != 0
+        in_tbl_pre = (fl & 4) != 0
+        fix_ok = (fl & 8) != 0
+        zero7 = (fl & 16) != 0
     else:
-        in_t112 = torch.zeros_like(syn112, dtype=torch.bool)
-        in_t56 = torch.zeros_like(syn56, dtype=torch.bool)
+        in_tbl_pre = None
+        zero7 = msg[:, :, :7].sum(2) == 0  # all-zero message
 
-    # --- 1-bit damaged DF17 (fixDF17msgtype) -------------------------------
-    fix_ok = torch.zeros_like(df, dtype=torch.bool)
-    if fix_df and nfix > 0:
-        deltas = _df_delta_np()
-        for d in _DF17_FIXABLE:
-            fix_ok |= (df == d) & (syn112 == int(deltas[d]))
+        # --- syndrome table membership -----------------------------------
+        if nfix > 0:
+            in_t112 = _isin_sorted(
+                syn112, torch.from_numpy(_table_syndromes_np(112, nfix)).to(dev))
+            in_t56 = _isin_sorted(
+                syn56, torch.from_numpy(_table_syndromes_np(56, nfix)).to(dev))
+        else:
+            in_t112 = torch.zeros_like(syn112, dtype=torch.bool)
+            in_t56 = torch.zeros_like(syn56, dtype=torch.bool)
+
+        # --- 1-bit damaged DF17 (fixDF17msgtype) ---------------------------
+        fix_ok = torch.zeros_like(df, dtype=torch.bool)
+        if fix_df and nfix > 0:
+            deltas = _df_delta_np()
+            for d in _DF17_FIXABLE:
+                fix_ok |= (df == d) & (syn112 == int(deltas[d]))
 
     # --- in-block teachable addresses (superset of host learns) ------------
     learn = fired & (
@@ -164,7 +260,8 @@ def score_gate(
 
     # --- known-ICAO test: residual in (known table U teach-set) ------------
     residual = torch.where(df >= 16, syn112, syn56) & 0xFFFFFF
-    in_tbl = _isin_sorted(residual, known_tbl)
+    # with flags, the kernel probed the same table
+    in_tbl = in_tbl_pre if in_tbl_pre is not None else _isin_sorted(residual, known_tbl)
     in_s = _isin_sorted(residual, torch.sort(s_vals).values)
     known = in_tbl | in_s | s_overflow
 
@@ -249,6 +346,7 @@ def score_gate(
         drop_cum_q=drop_cum_q,
         drop_cum_bnd=drop_cum_bnd,
         drop_cum_chan=drop_cum_chan,
+        fused_overflow=bc.fused_overflow,
     )
 
 

@@ -12,10 +12,18 @@ the kernel launches, so a run can show that the main path used them.
                      bytes and correlation bits for 5 phases
   mag_uc8            raw UC8 words -> uint16 magnitudes, equal to the LUT
   dense_scan         uint16 magnitudes -> the outputs of dense_scan_uc8
+  extract_classify_v3  extract_syndromes plus the score gate's per-phase
+                     flag word (lane per candidate, warp per phase)
+  extract_classify   the same function by the plan-order datapath (warp
+                     per candidate)
 
 The output contracts are those of readsb_tpu.ops.pallas_kernels
-dense_scan_uc8_pallas, extract_syndromes_pallas, mag_uc8_pallas and
-dense_scan_pallas.  The two dense scans share one body (csrc/dense_scan.cuh).
+dense_scan_uc8_pallas, extract_syndromes_pallas, mag_uc8_pallas,
+dense_scan_pallas, extract_classify_v3_pallas and extract_classify_pallas.
+The two dense scans share one body (csrc/dense_scan.cuh), the extractions
+one loop (csrc/extract.cuh) and the classifiers one function
+(csrc/classify.cuh).  The seventh kernel, the fused per-tile demodulator,
+has its wrapper in ops/fused.py and is built and loaded here.
 """
 
 from __future__ import annotations
@@ -35,7 +43,10 @@ from . import crc as crc_ops
 from .convert import mag_uc8_words, mag_uc8_words_i32, uc8_lut_np
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("dense_scan_uc8", "extract_syndromes", "mag_uc8", "dense_scan")
+SOURCES = (
+    "dense_scan_uc8", "extract_syndromes", "mag_uc8", "dense_scan",
+    "extract_classify_v3", "extract_classify", "fused_demod",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,6 +118,23 @@ def build(force: bool = False) -> dict[str, str]:
     return reports
 
 
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_DENSE_ARGS = [_P, _LL, _I, _P, _P, _P, _P, _P, _P]
+_CLASSIFY_ARGS = [_P, _P, _LL, _P, _I, _P, _I, _P, _I, _P]
+# the C entry point of each library (named as its source) takes these
+_ARGTYPES = {
+    "dense_scan_uc8": _DENSE_ARGS,
+    "dense_scan": _DENSE_ARGS,
+    "mag_uc8": [_P, _LL, _P, _P],
+    "extract_syndromes": [_P, _P, _LL, _P, _P],
+    "extract_classify_v3": [*_CLASSIFY_ARGS, _P, _P],
+    "extract_classify": [*_CLASSIFY_ARGS, _P, _P, _P],
+    "fused_demod": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+# libraries built on csrc/extract.cuh hold its __constant__ tables
+_EXTRACT_LIBS = ("extract_syndromes", "extract_classify_v3", "extract_classify", "fused_demod")
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
@@ -114,31 +142,16 @@ def _lib(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
             lib.rtpu_cuda_error_string.restype = ctypes.c_char_p
             lib.rtpu_cuda_error_string.argtypes = [ctypes.c_int]
-            if name in ("dense_scan_uc8", "dense_scan"):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ]
-            elif name == "mag_uc8":
-                lib.mag_uc8.restype = ctypes.c_int
-                lib.mag_uc8.argtypes = [
-                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                ]
-            else:
-                lib.extract_syndromes_set_tables.restype = ctypes.c_int
-                lib.extract_syndromes_set_tables.argtypes = [ctypes.c_void_p] * 3
-                lib.extract_syndromes.restype = ctypes.c_int
-                lib.extract_syndromes.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_void_p, ctypes.c_void_p,
-                ]
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = _ARGTYPES[name]
+            if name in _EXTRACT_LIBS:
+                lib.rtpu_extract_set_tables.restype = ctypes.c_int
+                lib.rtpu_extract_set_tables.argtypes = [_P] * 3
                 tap, s112, s56 = extract_tables_np()
-                _check(lib, lib.extract_syndromes_set_tables(
+                _check(lib, lib.rtpu_extract_set_tables(
                     tap.ctypes.data, s112.ctypes.data, s56.ctypes.data
-                ), "extract_syndromes_set_tables")
+                ), "rtpu_extract_set_tables")
             _libs[name] = lib
         return _libs[name]
 
@@ -375,16 +388,11 @@ def extract_tables_np() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return np.ascontiguousarray(tap), np.ascontiguousarray(s112), np.ascontiguousarray(s56)
 
 
-def extract_syndromes_plain(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of extract_syndromes (same contract).
-
-    Bits are picked from the aligned window with integer ops; syndromes
-    and message bytes come from one float32 product with
-    demod._combined_matrix, exact because every entry and every sum is an
-    integer below 2^8 (so TF32 would be exact too).
-    """
-    from .demod import _combined_matrix, lattice_tables
-
+def aligned_window(rows: torch.Tensor, offsets: torch.Tensor):
+    """Win rows int32[K,128] + offsets int32[K] -> (sw int64[K,55], corr
+    int64[K,3]): per candidate the five planes' 11 aligned window words
+    (bit i of word plane * 11 + j = plane bit at offset + 32 j + i) and the
+    three correlation bits at the candidate sample."""
     dev = rows.device
     k = rows.shape[0]
     r64 = rows.to(torch.int64) & 0xFFFFFFFF
@@ -395,31 +403,75 @@ def extract_syndromes_plain(rows: torch.Tensor, offsets: torch.Tensor) -> torch.
     base = torch.arange(5, device=dev)[:, None] * WIN_PLANE_WORDS + torch.arange(12, device=dev)
     idx = (base[None] + wrot[:, None, None]).reshape(k, 60)
     sw_pre = torch.gather(r64, 1, idx).reshape(k, 5, 12)
-    lo = sw_pre[:, :, :11] >> sb
-    hi = (sw_pre[:, :, 1:] & ((1 << sb) - 1)) << (32 - sb)  # 0 when sb == 0
-    sw = (lo | hi).reshape(k, 55)
+    sw = funnel_align(sw_pre, sb).reshape(k, 55)
 
+    cidx = WIN_CORR_BASE + torch.arange(3, device=dev)[None, :] * 8 + wrot[:, None]
+    corr = (torch.gather(r64, 1, cidx) >> sb[:, :, 0]) & 1
+    return sw, corr
+
+
+def funnel_align(sw_pre: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """int64[..., 12] unsigned 32-bit words -> int64[..., 11]: each word
+    shifted right by sb (0..31) with the next word's low bits shifted in."""
+    lo = sw_pre[..., :11] >> sb
+    hi = (sw_pre[..., 1:] & ((1 << sb) - 1)) << (32 - sb)  # 0 when sb == 0
+    return lo | hi
+
+
+def lanes_from_counts(counts: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+    """Bit-sum counts int64[K,5,62] (demod._combined_matrix columns per
+    phase) + corr int64[K,3] -> int64[K,83]: lanes 0:5 syn112, 5:10 syn56,
+    10:80 message bytes, 80:83 correlation bits."""
+    k = counts.shape[0]
+    w24 = 1 << torch.arange(23, -1, -1, device=counts.device)
+    syn112 = ((counts[:, :, 0:24] & 1) * w24).sum(-1)
+    syn56 = ((counts[:, :, 24:48] & 1) * w24).sum(-1)
+    msg = counts[:, :, 48:62].reshape(k, 70)
+    return torch.cat([syn112, syn56, msg, corr], dim=1)
+
+
+def lanes_from_aligned(sw: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+    """Aligned window words int64[K,55] + corr int64[K,3] -> int64[K,83].
+
+    Bits are picked in (phase, bit) order with integer ops; syndromes and
+    message bytes come from one float32 product with
+    demod._combined_matrix, exact because every entry and every sum is an
+    integer below 2^8 (so TF32 would be exact too).
+    """
+    from .demod import _combined_matrix, lattice_tables
+
+    dev = sw.device
+    k = sw.shape[0]
     aoff, kid = lattice_tables()
     word = torch.from_numpy((kid * 11 + (aoff >> 5)).reshape(-1).astype(np.int64)).to(dev)
     shift = torch.from_numpy((aoff & 31).reshape(-1).astype(np.int64)).to(dev)
     bits = (sw[:, word] >> shift) & 1  # (K, 560)
-
     comb = torch.from_numpy(_combined_matrix()).to(dev)
     counts = (bits.to(torch.float32).reshape(k * 5, 112) @ comb).to(torch.int64)
-    counts = counts.reshape(k, 5, 62)
-    w24 = 1 << torch.arange(23, -1, -1, device=dev)
-    syn112 = ((counts[:, :, 0:24] & 1) * w24).sum(-1)
-    syn56 = ((counts[:, :, 24:48] & 1) * w24).sum(-1)
-    msg = counts[:, :, 48:62].reshape(k, 70)
+    return lanes_from_counts(counts.reshape(k, 5, 62), corr)
 
-    cidx = WIN_CORR_BASE + torch.arange(3, device=dev)[None, :] * 8 + wrot[:, None]
-    corr = (torch.gather(r64, 1, cidx) >> sb[:, :, 0]) & 1
 
-    out = torch.cat(
-        [syn112, syn56, msg, corr, torch.zeros((k, 128 - 83), dtype=torch.int64, device=dev)],
-        dim=1,
-    )
-    return out.to(torch.int32)
+def pad_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """int64[K, L <= 128] -> int32[K,128], zero-filled."""
+    k, used = lanes.shape
+    pad = torch.zeros((k, 128 - used), dtype=torch.int64, device=lanes.device)
+    return torch.cat([lanes, pad], dim=1).to(torch.int32)
+
+
+def extract_syndromes_plain(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of extract_syndromes (same contract)."""
+    return pad_lanes(lanes_from_aligned(*aligned_window(rows, offsets)))
+
+
+def _check_rows(rows: torch.Tensor, offsets: torch.Tensor) -> int:
+    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != 128:
+        raise ValueError(f"rows must be int32[K, 128], got {rows.dtype} {tuple(rows.shape)}")
+    k = rows.shape[0]
+    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (k,):
+        raise ValueError(f"offsets must be int32[{k}], got {offsets.dtype} {tuple(offsets.shape)}")
+    if offsets.device != rows.device:
+        raise ValueError("rows and offsets must be on one device")
+    return k
 
 
 def extract_syndromes(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
@@ -430,13 +482,7 @@ def extract_syndromes(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor
     (CRC-24 over the first 56 bits), 10:80 message bytes (phase-major, 14
     per phase), 80:83 correlation-lane bits, the rest 0.  Any K.
     """
-    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != 128:
-        raise ValueError(f"rows must be int32[K, 128], got {rows.dtype} {tuple(rows.shape)}")
-    k = rows.shape[0]
-    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (k,):
-        raise ValueError(f"offsets must be int32[{k}], got {offsets.dtype} {tuple(offsets.shape)}")
-    if offsets.device != rows.device:
-        raise ValueError("rows and offsets must be on one device")
+    k = _check_rows(rows, offsets)
     if _on_cpu(rows):
         return extract_syndromes_plain(rows, offsets)
     rows = rows.contiguous()
@@ -454,3 +500,143 @@ def extract_syndromes(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor
 
 
 extract_syndromes.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels 5 and 6: extraction fused with the gate's per-phase classification
+# ---------------------------------------------------------------------------
+
+PLAN_WORDS = 576  # the 560 emission lanes padded to 18 rounds of 32
+
+
+@functools.lru_cache(maxsize=None)
+def extract_plan_words_np() -> np.ndarray:
+    """int32[576]: demod._extract_plan's 560 emission lanes in plan order,
+    one word each for the extract_classify kernel: aligned window word
+    (plane * 11 + j, 6 bits) | bit shift << 6 | message bit << 11 |
+    phase << 18.  The 16 padding words carry phase 7."""
+    from .demod import extract_plan_lanes
+
+    word, shift, col = extract_plan_lanes()
+    out = np.full(PLAN_WORDS, 7 << 18, np.int32)
+    out[: len(word)] = word | (shift << 6) | ((col % 112) << 11) | ((col // 112) << 18)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(nfix: int, fix_df: bool, device: torch.device):
+    """(t112, t56, dfd, plan) of gate.gate_tables_np and
+    extract_plan_words_np as int32 tensors on `device`, made once per
+    (nfix, fix_df) pair and device."""
+    from .gate import gate_tables_np
+
+    arrays = (*gate_tables_np(nfix, fix_df), extract_plan_words_np())
+    return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
+
+
+def extract_classify_v3_plain(rows, offsets, known_tbl, *, nfix: int = 1, fix_df: bool = True):
+    """Plain PyTorch version of extract_classify_v3: extract_syndromes_plain
+    plus gate.classify_plain in lanes 83:88."""
+    from .gate import classify_plain
+
+    lanes = lanes_from_aligned(*aligned_window(rows, offsets))
+    flags = classify_plain(lanes[:, 0:5], lanes[:, 5:10], lanes[:, 10:80], known_tbl, nfix, fix_df)
+    return pad_lanes(torch.cat([lanes, flags.to(torch.int64)], dim=1))
+
+
+def extract_classify_plain(rows, offsets, known_tbl, *, nfix: int = 1, fix_df: bool = True):
+    """Plain PyTorch version of extract_classify: the same function as
+    extract_classify_v3_plain by readsb_tpu's plan-order datapath
+    (demod._extract_plan): the 560 bits are emitted grouped by (plane,
+    word), and the column permutation is folded into the product's matrix."""
+    from .demod import _extract_plan, extract_plan_lanes
+    from .gate import classify_plain
+
+    dev = rows.device
+    sw, corr = aligned_window(rows, offsets)
+    word, shift, _ = extract_plan_lanes()
+    bits = (sw[:, torch.from_numpy(word.astype(np.int64)).to(dev)]
+            >> torch.from_numpy(shift.astype(np.int64)).to(dev)) & 1  # (K, 560) in plan order
+    m = torch.from_numpy(_extract_plan()[1]).to(dev)  # (560, 310), exact in float32
+    counts = (bits.to(torch.float32) @ m).to(torch.int64).reshape(rows.shape[0], 5, 62)
+    lanes = lanes_from_counts(counts, corr)
+    flags = classify_plain(lanes[:, 0:5], lanes[:, 5:10], lanes[:, 10:80], known_tbl, nfix, fix_df)
+    return pad_lanes(torch.cat([lanes, flags.to(torch.int64)], dim=1))
+
+
+def _check_known(known_tbl: torch.Tensor, rows: torch.Tensor) -> None:
+    if known_tbl.dtype != torch.int32 or known_tbl.dim() != 1:
+        raise ValueError(
+            f"known_tbl must be 1-D int32, got {known_tbl.dtype} {tuple(known_tbl.shape)}"
+        )
+    t = known_tbl.shape[0]
+    if t == 0 or t % 128:
+        raise ValueError(f"known_tbl length {t} is not a positive multiple of 128")
+    if known_tbl.device != rows.device:
+        raise ValueError("rows and known_tbl must be on one device")
+
+
+def _launch_classify(wrapper, rows, offsets, known_tbl, nfix: int, fix_df: bool):
+    """Allocate the output, launch the library named as `wrapper` and count
+    the launch on it."""
+    name = wrapper.__name__
+    k = rows.shape[0]
+    rows = rows.contiguous()
+    offsets = offsets.contiguous()
+    known_tbl = known_tbl.contiguous()
+    out = torch.empty((k, 128), dtype=torch.int32, device=rows.device)
+    if k == 0:
+        return out
+    t112, t56, dfd, plan = _device_tables(int(nfix), bool(fix_df), rows.device)
+    args = [
+        rows.data_ptr(), offsets.data_ptr(), k,
+        known_tbl.data_ptr(), known_tbl.shape[0],
+        t112.data_ptr(), t112.shape[0], t56.data_ptr(), t56.shape[0], dfd.data_ptr(),
+    ]
+    if name == "extract_classify":
+        args.append(plan.data_ptr())
+    lib = _lib(name)
+    rc = getattr(lib, name)(*args, out.data_ptr(), _stream(rows))
+    _check(lib, rc, name)
+    wrapper.launches += 1
+    return out
+
+
+def extract_classify_v3(rows, offsets, known_tbl, *, nfix: int = 1, fix_df: bool = True):
+    """extract_syndromes plus the score gate's per-phase classification.
+
+    rows int32[K,128], offsets int32[K] as extract_syndromes; known_tbl
+    int32[T], T % 128 == 0: the known-ICAO addresses SORTED ascending and
+    padded at the end with gate.TBL_SENTINEL (what DeviceIcaoMirror.tbl
+    hands out; the kernel searches it, it does not scan it).  nfix and
+    fix_df select the static tables of gate.gate_tables_np.
+
+    Returns int32[K,128]: lanes 0:83 as extract_syndromes, 83:88 one flag
+    word per phase (1 in_t112, 2 in_t56, 4 in_tbl, 8 fix_ok, 16 zero7; see
+    gate.classify_plain), the rest 0.  Any K, sentinel rows included: a row
+    past the candidates is classified like any other.
+    """
+    _check_rows(rows, offsets)
+    _check_known(known_tbl, rows)
+    if _on_cpu(rows):
+        return extract_classify_v3_plain(rows, offsets, known_tbl, nfix=nfix, fix_df=fix_df)
+    return _launch_classify(extract_classify_v3, rows, offsets, known_tbl, nfix, fix_df)
+
+
+extract_classify_v3.launches = 0
+
+
+def extract_classify(rows, offsets, known_tbl, *, nfix: int = 1, fix_df: bool = True):
+    """The function of extract_classify_v3, bit for bit, by the plan-order
+    datapath: on the card one warp per candidate walks the 560 emission
+    lanes of demod._extract_plan (csrc/extract_classify.cu).  The pipeline
+    calls extract_classify_v3; this one is held by the tests and timed
+    beside it."""
+    _check_rows(rows, offsets)
+    _check_known(known_tbl, rows)
+    if _on_cpu(rows):
+        return extract_classify_plain(rows, offsets, known_tbl, nfix=nfix, fix_df=fix_df)
+    return _launch_classify(extract_classify, rows, offsets, known_tbl, nfix, fix_df)
+
+
+extract_classify.launches = 0

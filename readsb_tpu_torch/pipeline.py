@@ -27,6 +27,13 @@ Frame-level parity with the reference (sdr_ifile.c:169-260 block cadence):
   scan    = offsets 0..valid_len-1 within each superblock
   ts      = scan_global_index * 5 + 768 + try_phase   (12 MHz clock)
 
+Two alternative device routes, both off by default as in readsb_tpu:
+FUSE_CLASSIFY (below) makes stage 4 classify each candidate phase for the
+score gate (kernels.extract_classify_v3), and ops.demod.USE_FUSED makes
+stages 1-4 one kernel per tile (ops/fused.py).  A fused dispatch that
+overflows a tile's capacities is redone staged, and the demodulator then
+stays staged (`_force_staged`): the fused capacities do not grow.
+
 Both demodulators take `device=` (default "cuda") and raise when that
 device is missing.  device="cpu" runs the kernels' plain versions.
 """
@@ -51,6 +58,11 @@ BYTES_PER_SAMPLE = {"uc8": 2, "sc16": 4, "sc16q11": 4}
 # overlap of the raw route.  The magnitude route starts from 326 zero
 # magnitudes.  Both as in readsb_tpu.
 SILENT_WORD = 0x8080
+# Gate classification inside the extraction kernel
+# (kernels.extract_classify_v3): the score gate then reads the kernel's
+# per-phase flags instead of searching the tables.  Off by default, as in
+# readsb_tpu.
+FUSE_CLASSIFY = False
 
 
 def _resolve_device(device) -> torch.device:
@@ -107,10 +119,16 @@ def _sigsum(a: np.ndarray) -> np.ndarray:
 def _fit_or_grow(d, gc) -> int | None:
     """n_keep when the dispatch fit every capacity of demodulator d; else
     double the capacities that overflowed and return None (the caller
-    redoes the dispatch).  One device sync."""
-    n, max_local, n_keep, kw = torch.stack(
-        [gc.n_cand, gc.max_local, gc.n_keep, gc.keep_watermark]
-    ).tolist()
+    redoes the dispatch).  A fused dispatch that overflowed its per-tile or
+    per-row capacity makes d staged for good and is redone too: those
+    capacities are fixed.  One device sync."""
+    counts = [gc.n_cand, gc.max_local, gc.n_keep, gc.keep_watermark]
+    if gc.fused_overflow is not None:
+        counts.append(gc.fused_overflow)
+    n, max_local, n_keep, kw, *overflow = torch.stack(counts).tolist()
+    if overflow and overflow[0] > 0:
+        d._force_staged = True
+        return None
     if n <= d.k and max_local <= d.compact_l and n_keep <= d.gate_k2 and kw <= d.gate_keep_l:
         return n_keep
     while d.k < n:
@@ -131,13 +149,16 @@ def _fetch(gc, names: tuple[str, ...]) -> list[np.ndarray]:
 def _demod_and_gate_raw(
     words, overlap_words, valid_len, threshold, known_tbl,
     *, k, scan_len, l, k2, nfix, fix_df, reset_every, keep_l=64,
+    force_staged=False,
 ):
     """One dispatch: raw UC8 words (S,) + overlap words (326,) -> GatedCandidates."""
     buf = torch.empty(TRAILING_SAMPLES + words.shape[0], dtype=torch.uint16, device=words.device)
     buf[:TRAILING_SAMPLES] = overlap_words
     buf[TRAILING_SAMPLES:] = words
     bc, cs_hi, cs_lo = demod_ops._demod_core(
-        buf, threshold, k=k, scan_len=scan_len, l=l, raw_uc8=True
+        buf, threshold, k=k, scan_len=scan_len, l=l, raw_uc8=True,
+        known_tbl=known_tbl if FUSE_CLASSIFY else None,
+        nfix=nfix, fix_df=fix_df, force_staged=force_staged,
     )
     return score_gate(
         bc, known_tbl, cs_hi, cs_lo, valid_len,
@@ -149,11 +170,16 @@ def _demod_and_gate_raw(
 def _demod_and_gate(
     mag, overlap, valid_len, threshold, known_tbl,
     *, k, scan_len, l, k2, nfix, fix_df, reset_every, keep_l=64,
+    force_staged=False,
 ):
     """One dispatch of the gated magnitude route: magnitudes (S,) + overlap
     (326,) -> (GatedCandidates, new overlap, block_sums of the valid samples)."""
     buf = torch.cat([overlap, mag])
-    bc, cs_hi, cs_lo = demod_ops._demod_core(buf, threshold, k=k, scan_len=scan_len, l=l)
+    bc, cs_hi, cs_lo = demod_ops._demod_core(
+        buf, threshold, k=k, scan_len=scan_len, l=l,
+        known_tbl=known_tbl if FUSE_CLASSIFY else None,
+        nfix=nfix, fix_df=fix_df, force_staged=force_staged,
+    )
     gc = score_gate(
         bc, known_tbl, cs_hi, cs_lo, valid_len,
         scan_len=scan_len, k2=k2, nfix=nfix, fix_df=fix_df,
@@ -179,13 +205,15 @@ def multi_buffer(samples, overlaps, seg_stride: int, seg_valid: int) -> torch.Te
 def _demod_and_gate_multi_raw(
     words, overlap_words, valid_len, threshold, known_tbl,
     *, k, scan_len, l, k2, nfix, fix_df, reset_every, seg_stride, seg_valid,
-    keep_l=64,
+    keep_l=64, force_staged=False,
 ):
     """One dispatch over C channels: words (C, S) + overlaps (C, 326)."""
     buf = multi_buffer(words, overlap_words, seg_stride, seg_valid)
     bc, cs_hi, cs_lo = demod_ops._demod_core(
         buf, threshold, k=k, scan_len=scan_len, l=l,
         seg_stride=seg_stride, seg_valid=seg_valid, raw_uc8=True,
+        known_tbl=known_tbl if FUSE_CLASSIFY else None,
+        nfix=nfix, fix_df=fix_df, force_staged=force_staged,
     )
     return score_gate(
         bc, known_tbl, cs_hi, cs_lo, valid_len,
@@ -197,7 +225,7 @@ def _demod_and_gate_multi_raw(
 def _demod_and_gate_multi(
     mags, overlaps, valid_len, threshold, known_tbl,
     *, k, scan_len, l, k2, nfix, fix_df, reset_every, seg_stride, seg_valid,
-    keep_l=64,
+    keep_l=64, force_staged=False,
 ):
     """One dispatch of the magnitude route over C channels: mags (C, S) +
     overlaps (C, 326) -> (GatedCandidates, new overlaps, per-channel
@@ -206,6 +234,8 @@ def _demod_and_gate_multi(
     bc, cs_hi, cs_lo = demod_ops._demod_core(
         buf, threshold, k=k, scan_len=scan_len, l=l,
         seg_stride=seg_stride, seg_valid=seg_valid,
+        known_tbl=known_tbl if FUSE_CLASSIFY else None,
+        nfix=nfix, fix_df=fix_df, force_staged=force_staged,
     )
     gc = score_gate(
         bc, known_tbl, cs_hi, cs_lo, valid_len,
@@ -288,6 +318,8 @@ class Demodulator:
         self.gate_k2 = 1024
         self.gate_keep_l = 64
         self._gate_drops = [0, 0, 0]  # preambles, rejected_unknown, rejected_bad
+        # set for good by the first fused dispatch that overflows (USE_FUSED)
+        self._force_staged = False
         self.icao_mirror = DeviceIcaoMirror(device=self.device)
         self._overlap_words = torch.full(
             (TRAILING_SAMPLES,), SILENT_WORD, dtype=torch.uint16, device=self.device
@@ -388,6 +420,7 @@ class Demodulator:
                 k=self.k, scan_len=self.super_samples, l=self.compact_l,
                 k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
                 reset_every=self.block_samples, keep_l=self.gate_keep_l,
+                force_staged=self._force_staged,
             )
             n_keep = _fit_or_grow(self, gc)
             if n_keep is not None:
@@ -404,6 +437,7 @@ class Demodulator:
                 k=self.k, scan_len=self.super_samples, l=self.compact_l,
                 k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
                 reset_every=self.block_samples, keep_l=self.gate_keep_l,
+                force_staged=self._force_staged,
             )
             n_keep = _fit_or_grow(self, gc)
             if n_keep is not None:
@@ -446,8 +480,12 @@ class Demodulator:
         k = self.k
         while True:
             cand = demod_ops.demod_block(
-                buf, self.threshold, k=k, scan_len=self.super_samples, l=self.compact_l
+                buf, self.threshold, k=k, scan_len=self.super_samples, l=self.compact_l,
+                force_staged=self._force_staged,
             )
+            if cand.fused_overflow is not None and int(cand.fused_overflow) > 0:
+                self._force_staged = True  # the fused capacities are fixed
+                continue
             n, max_local = torch.stack([cand.n_cand, cand.max_local]).tolist()
             if n <= k and max_local <= self.compact_l:
                 break
@@ -523,6 +561,7 @@ def _load_common(demod, mirror: DeviceIcaoMirror, state: dict) -> None:
     demod.compact_l = state["compact_l"]
     demod.gate_k2 = state["gate_k2"]
     demod.gate_keep_l = state["gate_keep_l"]
+    demod._force_staged = state["force_staged"]
     m = state["mirror"]
     mirror.load(m["cur"], m["prev"], m["next_swap_ms"], m["capacity"])
 
@@ -631,6 +670,7 @@ class MultiDemodulator:
         self._skips = [0] * n_chan
         self._pending = [b""] * n_chan
         self._gate_drops = [[0, 0, 0] for _ in range(n_chan)]
+        self._force_staged = False  # as Demodulator's
         self._overlap_words = torch.full(
             (n_chan, TRAILING_SAMPLES), SILENT_WORD, dtype=torch.uint16, device=self.device
         )
@@ -706,7 +746,7 @@ class MultiDemodulator:
                 k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
                 reset_every=self.block_samples,
                 seg_stride=self.seg_stride, seg_valid=self.seg_valid,
-                keep_l=self.gate_keep_l,
+                keep_l=self.gate_keep_l, force_staged=self._force_staged,
             )
             gc = out if self.raw_route else out[0]
             n_keep = _fit_or_grow(self, gc)

@@ -3,7 +3,8 @@
 A demodulator's stream state is the part of it that is not recomputed:
 the carried overlap (raw words on the raw-UC8 route, uint16 magnitudes on
 the magnitude route, with that route's block level and power and its Mode
-A/C capacity), the scan-global sample clock, the escalated capacities, the
+A/C capacity), the scan-global sample clock, the escalated capacities, whether a fused
+overflow has made the stream staged for good, the
 device ICAO mirror's generations and clock, and the host ICAO filter of
 each channel's Python Scorer.  The static tables
 (slicer lattice, syndrome matrices, error tables, DF delta syndromes) are
@@ -48,6 +49,8 @@ def demod_state_from_numpy(d: dict) -> dict:
                      512; default 512)
       scan_global    int, samples consumed per channel
       k, compact_l, gate_k2, gate_keep_l   int capacities (powers of two)
+      force_staged   bool, optional (default False): readsb_tpu's
+                     `_force_staged`, set when a fused dispatch overflowed
       mirror         {"cur", "prev": address iterables,
                       "next_swap_ms": int | None, "capacity": int}
       icao           one {"cur", "prev", "next_swap_ms"} per channel: the
@@ -79,6 +82,7 @@ def demod_state_from_numpy(d: dict) -> dict:
         if v < 1 or v & (v - 1):
             raise ValueError(f"{name}={v} is not a power of two")
         out[name] = v
+    out["force_staged"] = bool(d.get("force_staged", False))
     m = d["mirror"]
     out["mirror"] = {
         "cur": _addr_set(m["cur"], "mirror.cur"),

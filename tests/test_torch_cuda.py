@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from readsb_tpu_torch.ops import convert, kernels, modeac
+from readsb_tpu_torch import pipeline
+from readsb_tpu_torch.ops import convert, demod, fused, gate, kernels, modeac
 from readsb_tpu_torch.pipeline import Demodulator, MultiDemodulator
 from readsb_tpu_torch.synth import CaptureBuilder, build_standard_capture, quantize_sc16
 
@@ -154,3 +155,135 @@ def test_ungated_modeac_card_equals_cpu(dev):
     assert kernels.mag_uc8.launches > before[0] and kernels.dense_scan.launches > before[1]
     assert {c for c, _ in card[1]} == {0x1200, 0x7700, 0x0030, 0x2644}
     assert card == cpu
+
+
+# ---------------------------------------------------------------------------
+# Kernels 5, 6 and 7 and the two routes they serve
+# ---------------------------------------------------------------------------
+
+
+def _known_table(values, t: int) -> torch.Tensor:
+    vals = sorted({int(v) & 0xFFFFFF for v in values})[: t - 1]
+    tbl = np.full(t, gate.TBL_SENTINEL, np.int32)
+    tbl[: len(vals)] = vals
+    return torch.from_numpy(tbl)
+
+
+@pytest.fixture(scope="module")
+def capture_rows():
+    """(rows, offsets, magnitudes) of a 0.4 s capture at K = 131072, on the CPU."""
+    raw = build_standard_capture(0.4, 6, 17).render_uc8()
+    words = torch.from_numpy(np.ascontiguousarray(raw).view("<u2").copy())
+    mag = kernels.mag_uc8(words)
+    scan_len = (mag.shape[0] - 326) // 512 * 512
+    corrbits, pwords, _, _ = demod._dense_stages(mag[: scan_len + 326], 58)
+    offsets, n_cand, _, rows = demod.candidate_rows(corrbits, pwords, k=131072, l=64,
+                                                    scan_len=scan_len)
+    assert 1000 < int(n_cand) < 131072
+    rows[-64:] = 0  # all-zero messages, for the zero7 flag
+    return rows, offsets, mag
+
+
+@pytest.mark.parametrize("name", ["extract_classify_v3", "extract_classify"])
+@pytest.mark.parametrize("nfix,fix_df", [(0, False), (1, True), (2, True)])
+@pytest.mark.parametrize("t", [128, 2048])
+def test_classify_kernels_equal_plain_on_a_capture(dev, capture_rows, name, nfix, fix_df, t):
+    rows, offsets, _ = capture_rows
+    tbl = _known_table([0x400000 + a * 0x1111 for a in range(6)] + list(range(7, 9000, 3)), t)
+    fn = getattr(kernels, name)
+    before = fn.launches
+    args = (rows.to(dev), offsets.to(dev), tbl.to(dev))
+    got = fn(*args, nfix=nfix, fix_df=fix_df)
+    assert fn.launches == before + 1
+    # the plain version on the card too: 131072 rows are slow on the host
+    want = getattr(kernels, name + "_plain")(*args, nfix=nfix, fix_df=fix_df)
+    assert torch.equal(got, want)
+    assert (want[:, 83:88] & 4).any() and (want[:, 83:88] & 16).any()
+    if nfix:
+        assert (want[:, 83:88] & 1).any()
+
+
+@pytest.mark.parametrize("k", [1, 31, 33, 5001])
+def test_classify_kernels_equal_plain_on_ragged_random_rows(dev, k):
+    rng = np.random.default_rng(k)
+    rows = torch.from_numpy(rng.integers(-(2**31), 2**31, (k, 128), dtype=np.int64).astype(np.int32))
+    offs = torch.from_numpy(rng.integers(0, 2**24, k, dtype=np.int64).astype(np.int32))
+    blank = torch.full((128,), gate.TBL_SENTINEL, dtype=torch.int32)
+    first = kernels.extract_classify_v3_plain(rows, offs, blank, nfix=2)
+    tbl = _known_table(first[:, 0:10].reshape(-1)[::3].tolist(), 1024)
+    want = kernels.extract_classify_v3_plain(rows, offs, tbl, nfix=2)
+    assert (want[:, 83:88] & 4).any()
+    v3 = kernels.extract_classify_v3(rows.to(dev), offs.to(dev), tbl.to(dev), nfix=2)
+    v2 = kernels.extract_classify(rows.to(dev), offs.to(dev), tbl.to(dev), nfix=2)
+    assert torch.equal(v3.cpu(), want)
+    assert torch.equal(v2, v3)
+    assert torch.equal(kernels.extract_classify_plain(rows, offs, tbl, nfix=2), want)
+
+
+@pytest.mark.parametrize("cap", [1024, 1016])
+@pytest.mark.parametrize("layout", [None, (131584, 131072)], ids=["flat", "channels"])
+def test_fused_kernel_equals_plain_on_a_capture(dev, capture_rows, cap, layout):
+    mag = capture_rows[2]
+    n = mag.shape[0] // fused.TILE * fused.TILE
+    kw = dict(cap=cap)
+    if layout:
+        kw.update(seg_stride=layout[0], seg_valid=layout[1], scan_limit=n - 70000)
+    before = fused.fused_demod_tiles.launches
+    got = fused.fused_demod_tiles(mag[:n].to(dev), 58, **kw)
+    assert fused.fused_demod_tiles.launches == before + 1
+    want = fused.fused_demod_tiles_plain(mag[:n].to(dev), 58, **kw)
+    assert want[2].any() and int(want[3][:, 0].max()) <= cap
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_fused_kernel_equals_plain_when_it_overflows(dev, halo):
+    """Noise: thousands of candidates per tile and crowded rows; with and
+    without the last tile's halo in the buffer."""
+    rng = np.random.default_rng(9)
+    n = 3 * fused.TILE + (fused.HALO if halo else 0)
+    mag = torch.from_numpy(rng.integers(0, 4000, n, dtype=np.int64).astype(np.uint16))
+    fused.L_ROW = 4
+    try:
+        want = fused.fused_demod_tiles_plain(mag, 58, cap=777)
+        got = fused.fused_demod_tiles(mag.to(dev), 58, cap=777)
+    finally:
+        fused.L_ROW = 16
+    assert int(want[3][:, 0].min()) > 777 and int(want[3][:, 2].max()) > 4
+    assert want[2].any() and not want[2].all()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _multi_run(device, fmt):
+    caps = [build_standard_capture(0.4, 3, s) for s in (5, 6, 7, 8)]
+    if fmt == "sc16":
+        chunks = [quantize_sc16(c.render_iq()).tobytes() for c in caps]
+    else:
+        chunks = [bytes(c.render_uc8()) for c in caps]
+    m = MultiDemodulator(4, fmt=fmt, blocks_per_batch=1, use_native=False, device=device,
+                         k_per_block=4096)
+    out = m.feed(chunks)
+    for c, t in enumerate(m.flush()):
+        out[c].extend(t)
+    return [[(f.msg, f.timestamp) for f in fr] for fr in out], [
+        (s.preambles, s.rejected_bad, s.rejected_unknown_icao, s.accepted)
+        for s in map(m.channel_stats, range(4))
+    ], m._force_staged
+
+
+@pytest.mark.parametrize("fmt", ["uc8", "sc16"])
+@pytest.mark.parametrize("route", ["FUSE_CLASSIFY", "USE_FUSED"])
+def test_routes_on_the_card_equal_the_staged_cpu_run(dev, fmt, route):
+    cpu = _multi_run("cpu", fmt)
+    wrapper = kernels.extract_classify_v3 if route == "FUSE_CLASSIFY" else fused.fused_demod_tiles
+    before = wrapper.launches
+    module = pipeline if route == "FUSE_CLASSIFY" else demod
+    setattr(module, route, True)
+    try:
+        card = _multi_run(dev, fmt)
+    finally:
+        setattr(module, route, False)
+    assert wrapper.launches > before
+    assert card == cpu and card[2] is False and sum(map(len, card[0])) > 10

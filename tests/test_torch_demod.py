@@ -68,6 +68,9 @@ def test_demod_block_equals_jax(mag_buf, k, threshold):
     got = demod.demod_block(torch.from_numpy(mag_buf.copy()), threshold, k=k, l=64)
     assert int(got.n_cand) > 0
     for field in demod.BlockCandidates._fields:
+        if getattr(want, field) is None:  # flags, live, fused_overflow: staged route
+            assert getattr(got, field) is None, field
+            continue
         np.testing.assert_array_equal(
             getattr(got, field).numpy(), np.asarray(getattr(want, field)), err_msg=field
         )

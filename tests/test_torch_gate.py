@@ -53,6 +53,9 @@ def _compare(cores, tbl: np.ndarray, *, scan_len, valid_len, **kw):
     want = _jax_gate(bcj, jnp.asarray(tbl), hj, lj, jnp.int32(valid_len), scan_len=scan_len, **kw)
     got = gate.score_gate(bct, torch.from_numpy(tbl), ht, lt, valid_len, scan_len=scan_len, **kw)
     for field in gate.GatedCandidates._fields:
+        if getattr(want, field) is None:  # fused_overflow off the fused route
+            assert getattr(got, field) is None, field
+            continue
         np.testing.assert_array_equal(
             getattr(got, field).numpy(), np.asarray(getattr(want, field)), err_msg=field
         )

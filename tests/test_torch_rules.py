@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from readsb_tpu_torch.ops import kernels
+from readsb_tpu_torch import pipeline
+from readsb_tpu_torch.ops import demod, fused, kernels
 from readsb_tpu_torch.pipeline import Demodulator, MultiDemodulator
 
 # the suite runs in several worker processes that share the cores
@@ -124,8 +125,17 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     [lambda: kernels.mag_uc8(torch.zeros(8, dtype=torch.int32)),
      lambda: kernels.mag_uc8(torch.zeros((2, 8), dtype=torch.uint16)),
      lambda: kernels.dense_scan(torch.zeros(1000, dtype=torch.uint16), 58),
-     lambda: kernels.dense_scan(torch.zeros(65536, dtype=torch.int32), 58)],
-    ids=["mag-dtype", "mag-rank", "dense-length", "dense-dtype"],
+     lambda: kernels.dense_scan(torch.zeros(65536, dtype=torch.int32), 58),
+     lambda: kernels.extract_classify_v3(
+         torch.zeros((2, 128), dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+         torch.zeros(100, dtype=torch.int32)),
+     lambda: kernels.extract_classify(
+         torch.zeros((2, 128), dtype=torch.int32), torch.zeros(2, dtype=torch.int64),
+         torch.zeros(128, dtype=torch.int32)),
+     lambda: fused.fused_demod_tiles(torch.zeros(65536 + 512, dtype=torch.uint16), 58, cap=128),
+     lambda: fused.fused_demod_tiles(torch.zeros(65536, dtype=torch.int16), 58, cap=128)],
+    ids=["mag-dtype", "mag-rank", "dense-length", "dense-dtype", "classify-v3-table",
+         "classify-offsets-dtype", "fused-length", "fused-dtype"],
 )
 def test_new_wrappers_reject_bad_input(call):
     with pytest.raises(ValueError):
@@ -150,11 +160,51 @@ def test_build_rebuilds_when_a_header_is_newer(tmp_path, monkeypatch):
     nvcc.chmod(0o755)
     assert sorted(kernels.build()) == sorted(kernels.SOURCES)  # nothing built yet
     assert kernels.build() == {}  # all fresh
-    later = os.path.getmtime(out / "libmag_uc8.so") + 10
-    os.utime(csrc / "extract_syndromes.cu", (later, later))
+
+    def stamp_libraries(t):
+        for lib in out.iterdir():
+            os.utime(lib, (t, t))
+
+    t0 = os.path.getmtime(out / "libmag_uc8.so")
+    os.utime(csrc / "extract_syndromes.cu", (t0 + 10, t0 + 10))
     assert sorted(kernels.build()) == ["extract_syndromes"]  # its source alone
-    os.utime(csrc / "uc8_mag.cuh", (later + 10, later + 10))
-    assert sorted(kernels.build()) == sorted(kernels.SOURCES)  # a header: every library
+    for i, header in enumerate(("uc8_mag.cuh", "dense_scan.cuh", "extract.cuh", "classify.cuh")):
+        at = t0 + 20 * (i + 1)
+        stamp_libraries(at)
+        assert kernels.build() == {}
+        os.utime(csrc / header, (at + 10, at + 10))
+        assert sorted(kernels.build()) == sorted(kernels.SOURCES)  # a header: every library
+
+
+def test_the_two_route_constants_are_off_at_import():
+    """The fused routes run only where a caller sets their constant."""
+    code = (
+        "import readsb_tpu_torch.pipeline as p, readsb_tpu_torch.ops.demod as d\n"
+        "print(p.FUSE_CLASSIFY, d.USE_FUSED)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
+    assert pipeline.FUSE_CLASSIFY is False and demod.USE_FUSED is False
+    assert len(kernels.SOURCES) == 7 and sorted(kernels._ARGTYPES) == sorted(kernels.SOURCES)
+    for name in kernels.SOURCES:
+        assert os.path.exists(os.path.join(kernels.CSRC, name + ".cu")), name
+
+
+def test_new_wrappers_take_the_plain_versions_uncounted_on_the_cpu():
+    wrappers = (kernels.extract_classify_v3, kernels.extract_classify, fused.fused_demod_tiles)
+    before = [w.launches for w in wrappers]
+    rows = torch.zeros((3, 128), dtype=torch.int32)
+    offs = torch.tensor([0, 7, 300], dtype=torch.int32)
+    tbl = torch.full((128,), 0x1000000, dtype=torch.int32)
+    a = kernels.extract_classify_v3(rows, offs, tbl)
+    assert torch.equal(a, kernels.extract_classify(rows, offs, tbl))
+    assert a[:, 83:88].tolist() == [[16] * 5] * 3 and not a[:, :83].any()  # zero7 only
+    out = fused.fused_demod_tiles(torch.full((65536,), 363, dtype=torch.uint16), 58, cap=5)
+    assert [tuple(o.shape) for o in out] == [(5, 128), (5,), (5,), (1, 3), (65536,), (65536,)]
+    assert not out[2].any() and out[1].tolist() == [65536] * 5 and not out[3].any()
+    assert [w.launches for w in wrappers] == before
 
 
 def test_wrap_and_pack_helpers():
