@@ -21,15 +21,19 @@ just before and read just after:
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
-against the staged card run, which that CPU run holds), and prints
-per-kernel times and bounds, and one dispatch under each constant.  The last line is {"ok": true, "device":
-{...}}; any failure exits non-zero before it.  Needs a CUDA device;
-imports nothing of JAX.
+against the staged card run, which that CPU run holds), and prints the
+build's ptxas report (registers, shared memory, spills) and SASS
+instruction counts, per-kernel times and bounds, and one dispatch under
+each constant.  The last line is {"ok": true, "device": {...}}; any
+failure exits non-zero before it.  Needs a CUDA device; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import time
@@ -37,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from readsb_tpu_torch import pipeline
+from readsb_tpu_torch import BUILD_DIR, pipeline
 from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT
 from readsb_tpu_torch.ops import demod as demod_ops
 from readsb_tpu_torch.ops import fused, kernels
@@ -113,21 +117,63 @@ def time_ms(fn, reps: int = 15, warm: int = 2, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> float:
-    """Device time per call of the kernels whose names contain one of
-    `names`, from torch.profiler: what the card spends, without the host's
-    enqueue."""
+def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> tuple[float, float]:
+    """(device ms, device launches) per call of fn, from torch.profiler:
+    the time of the kernels and memsets whose names contain one of `names`,
+    what the card spends without the host's enqueue, and the count of every
+    device activity.  Raises when no activity matches the names."""
     fn()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.key for n in names)
-    )
-    return total / reps / 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    hits = [e for e in dev if any(n in e.key for n in names)]
+    if not hits:
+        raise SystemExit(f"chip_smoke: FAILED: no device activity named {names} in "
+                         f"{[e.key[:60] for e in dev]}")
+    return (sum(e.self_device_time_total for e in hits) / reps / 1e3,
+            sum(e.count for e in dev) / reps)
+
+
+def sass_counts(lib: str) -> dict[str, int]:
+    """{kernel: SASS instructions} of a built library, from cuobjdump -sass
+    (the toolkit's, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    so = os.path.join(BUILD_DIR, f"lib{lib}.so")
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    counts: dict[str, int] = {}
+    func = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = 0
+        elif func and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[func] += 1
+    return counts
+
+
+def ptxas_table(reports: dict[str, str]) -> list[tuple[str, str, int, int, int]]:
+    """[(library, kernel, registers, static shared bytes, spill bytes)] from
+    the build's `-Xptxas -v` reports; spill = spill stores + spill loads."""
+    out = []
+    for lib, rep in reports.items():
+        func, spill = "?", 0
+        for line in rep.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                func, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                sh = re.search(r"(\d+) bytes smem", line)
+                out.append((lib, func, int(m.group(1)), int(sh.group(1)) if sh else 0, spill))
+    return out
 
 
 def max_abs_err(xs, ys) -> int:
@@ -230,10 +276,14 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = kernels.build(force=True)
     log(f"built {', '.join(reports)} in {time.perf_counter() - t0:.1f} s")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line:
-                log(f"  {name}: {line.strip()}")
+    ptxas = ptxas_table(reports)
+    for lib, func, regs, smem, spill in ptxas:
+        log(f"  ptxas {lib}: {func[:70]}: {regs} registers, {smem} B static shared, "
+            f"{spill} B spilled")
+    check(len(ptxas) >= len(kernels.SOURCES), "the ptxas report lists too few kernels")
+    for lib in kernels.SOURCES:
+        for func, count in sass_counts(lib).items():
+            log(f"  sass {lib}: {func[:70]}: {count} instructions")
 
     # --- workload -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -538,16 +588,15 @@ def main() -> None:
     n_mag = words_flat.shape[0]
     ms_mag = time_ms(lambda: kernels.mag_uc8(words_flat), inner=20)
     ms_mag_sb = time_ms(lambda: kernels.mag_uc8(words_flat[: 4 * BLOCK_SAMPLES]), inner=20)
-    dev_mag = device_ms(lambda: kernels.mag_uc8(words_flat), ("mag_uc8_kernel",))
-    dev_mag_sb = device_ms(
+    dev_mag, _ = device_ms(lambda: kernels.mag_uc8(words_flat), ("mag_uc8_kernel",))
+    dev_mag_sb, _ = device_ms(
         lambda: kernels.mag_uc8(words_flat[: 4 * BLOCK_SAMPLES]), ("mag_uc8_kernel",)
     )
-    dev_densem = device_ms(
-        lambda: kernels.dense_scan(magp, thr), ("dense_main", "block_sums", "scan_totals")
-    )
-    dev_dense = device_ms(
-        lambda: kernels.dense_scan_uc8(bufp, thr), ("dense_main", "block_sums", "scan_totals")
-    )
+    # the dense scans: a memset of the tile ticket and flags, then dense_tile
+    dev_densem, calls_densem = device_ms(lambda: kernels.dense_scan(magp, thr),
+                                         ("dense_tile", "Memset"))
+    dev_dense, calls_dense = device_ms(lambda: kernels.dense_scan_uc8(bufp, thr),
+                                       ("dense_tile", "Memset"))
     # the plain version and the library call are the same thing here: one
     # LUT gather; the library call is timed with its index already built
     plain_mag = time_ms(lambda: mag_uc8_words(words_flat), reps=10)
@@ -565,15 +614,17 @@ def main() -> None:
     ms_ex5 = time_ms(lambda: kernels.extract_syndromes(rows, offsets), inner=5)
     plain_cls = time_ms(lambda: kernels.extract_classify_v3_plain(*cls_args, **cls_kw), reps=5)
     plain_cls2 = time_ms(lambda: kernels.extract_classify_plain(*cls_args, **cls_kw), reps=5)
-    dev_ex = device_ms(lambda: kernels.extract_syndromes(rows, offsets), ("rows_kernel",))
-    dev_cls = device_ms(lambda: kernels.extract_classify_v3(*cls_args, **cls_kw), ("rows_kernel",))
-    dev_cls2 = device_ms(lambda: kernels.extract_classify(*cls_args, **cls_kw), ("warp_kernel",))
+    dev_ex, calls_ex = device_ms(lambda: kernels.extract_syndromes(rows, offsets), ("cand_rows",))
+    dev_cls, _ = device_ms(lambda: kernels.extract_classify_v3(*cls_args, **cls_kw),
+                           ("cand_rows",))
+    dev_cls2, _ = device_ms(lambda: kernels.extract_classify(*cls_args, **cls_kw),
+                            ("warp_kernel",))
     ms_fu = time_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw))
     plain_fu = time_ms(lambda: fused.fused_demod_tiles_plain(mag_f, thr, **fused_kw), reps=5)
-    dev_fu = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
-                       ("fused_tile", "block_sums", "scan_totals"))
-    dev_fu_tile = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
-                            ("fused_tile",))
+    dev_fu, _ = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
+                          ("fused_tile", "block_sums", "scan_totals"))
+    dev_fu_tile, _ = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
+                               ("fused_tile",))
     k_rows = rows.shape[0]
     dense_bytes = n * 2 + n * 1 + 5 * (n // 32) * 4 + 2 * n * 4
     ex_bytes = k_rows * (128 * 4 + 4 + 128 * 4)
@@ -611,8 +662,15 @@ def main() -> None:
     log(f"mag_uc8 at N={4 * BLOCK_SAMPLES} (one ungated superblock): {ms_mag_sb:.4f} ms; "
         f"one LUT gather lut[idx] at N={n_mag}: {lib_mag:.4f} ms on {card}")
     log(f"device time alone (torch.profiler): mag_uc8 {dev_mag:.4f} ms at N={n_mag}, "
-        f"{dev_mag_sb:.4f} ms at N={4 * BLOCK_SAMPLES}; dense_scan {dev_densem:.4f} ms, "
-        f"dense_scan_uc8 {dev_dense:.4f} ms (three kernels each) on {card}")
+        f"{dev_mag_sb:.4f} ms at N={4 * BLOCK_SAMPLES} on {card}")
+    for name, ms, dms, calls, b in (
+        ("dense_scan_uc8", ms_dense, dev_dense, calls_dense, b_dense),
+        ("dense_scan", ms_densem, dev_densem, calls_densem, b_dense),
+        ("extract_syndromes", ms_ex, dev_ex, calls_ex, b_ex),
+    ):
+        log(f"{name}: {ms:.4f} ms by events ({b / ms * 100:.1f}% of the bound), "
+            f"{dms:.4f} ms of device time ({b / dms * 100:.1f}%), bound {b:.4f} ms, "
+            f"{calls:g} device launches per call on {card}")
     log(f"dense_scan / dense_scan_uc8 = {ms_densem / ms_dense:.3f} by events, "
         f"{dev_densem / dev_dense:.3f} by device time (same bytes, no convert)")
 
@@ -739,7 +797,8 @@ def main() -> None:
             "replaces": "readsb_tpu/ops/pallas_kernels.py:400",
             "launches": launches["dense_scan_uc8"], "max_abs_err": err_dense,
             "ms": ms_dense, "plain_ms": plain_dense, "bound_ms": b_dense,
-            "bound_by": by_dense, "library_ms": None,
+            "bound_by": by_dense, "library_ms": None, "device_ms": dev_dense,
+            "device_launches_per_call": calls_dense,
         },
         {
             "name": "extract_syndromes", "route": "cuda",
@@ -747,7 +806,8 @@ def main() -> None:
             "replaces": "readsb_tpu/ops/pallas_kernels.py:579",
             "launches": launches["extract_syndromes"], "max_abs_err": err_ex,
             "ms": ms_ex, "plain_ms": plain_ex, "bound_ms": b_ex,
-            "bound_by": by_ex, "library_ms": None,
+            "bound_by": by_ex, "library_ms": None, "device_ms": dev_ex,
+            "device_launches_per_call": calls_ex,
         },
         {
             "name": "mag_uc8", "route": "cuda",
@@ -765,6 +825,7 @@ def main() -> None:
             "launches": launches16["dense_scan"], "max_abs_err": err_densem,
             "ms": ms_densem, "plain_ms": plain_densem, "bound_ms": b_dense,
             "bound_by": by_dense, "library_ms": None, "device_ms": dev_densem,
+            "device_launches_per_call": calls_densem,
         },
         {
             "name": "extract_classify_v3", "route": "cuda",

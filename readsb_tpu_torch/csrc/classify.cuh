@@ -70,8 +70,9 @@ __device__ __forceinline__ int32_t flags(const Tables& t, const extract::Phase& 
          | (static_cast<int32_t>(zero7) << 4);
 }
 
-// rows_kernel's post step: lane 83 + ph of the candidate's output row.
+// extract::cand_rows's post step: lane 83 + ph of the candidate's output row.
 struct Post {
+    static constexpr int kLanes = kFlagLane + extract::kPhases;
     Tables t;
     __device__ __forceinline__ void operator()(int ph, const extract::Phase& r,
                                                int32_t* o) const {

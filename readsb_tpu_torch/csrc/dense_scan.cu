@@ -10,8 +10,8 @@
 
 #include "dense_scan.cuh"
 
-// n % 1024 == 0 (the wrapper asks for n % 65536 == 0); scratch holds
-// 2 * n / 1024 uint32 block totals.  Returns cudaGetLastError().
+// n % 8192 == 0 (the wrapper asks for n % 65536 == 0); scratch holds
+// dense::kHead + 6 * n / 8192 uint32.  Returns the first CUDA error.
 extern "C" int dense_scan(const void* mag, long long n, int threshold,
                           void* corr, void* pwords, void* cs_hi, void* cs_lo,
                           void* scratch, void* stream) {

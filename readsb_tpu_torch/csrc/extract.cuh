@@ -1,26 +1,31 @@
-// Per-(candidate, phase) bit extraction + CRC-24 syndromes for Hopper
-// (sm_90a): the loop shared by the kernels that slice candidates.
+// Per-candidate bit extraction + CRC-24 syndromes for Hopper (sm_90a):
+// the code shared by the kernels that slice candidates.
 //
 // The TPU kernels extract_syndromes_pallas, extract_classify_v3_pallas and
 // fused_demod_tiles (readsb_tpu/ops/pallas_kernels.py :579, :847 and
 // readsb_tpu/ops/fused.py :304) share one extraction datapath (_extract_kernel
-// :514); so do extract_syndromes.cu, extract_classify_v3.cu and
-// fused_demod.cu, which differ only in where a candidate's aligned window
-// words come from:
+// :514).  Here two forms of it serve three kernels:
+//
+//   cand_rows  extract_syndromes.cu and extract_classify_v3.cu: gathered
+//              win rows, one lane per candidate, the tap schedule fixed at
+//              compile time (extract_taps.cuh), syndromes by bytes;
+//   phase      fused_demod.cu: one thread per (candidate, phase) walks the
+//              112 bits with the tap schedule and the per-bit syndromes in
+//              __constant__ memory, reading its window through a Fetch:
 //
 //   Fetch::word(plane, j)  the 32 sign bits of slicer plane `plane` at samples
 //                          [offset + 32 j, offset + 32 j + 32), bit i = sample i
 //
-// One thread walks the 112 bits of one phase: the tap schedule and the
-// per-bit syndromes are indexed by the loop counter alone, so every lane
-// of a warp that works on one phase reads the same __constant__ word.
-// Each syndrome is the XOR of the per-bit syndromes of the set bits
+// Either way a syndrome is the XOR of the per-bit syndromes of the set bits
 // (crc.single_bit_syndromes), so no float product is involved.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
+
+#include "extract_taps.cuh"
 
 namespace extract {
 
@@ -31,10 +36,16 @@ constexpr int kUsedLanes = 83;   // 0:5 syn112, 5:10 syn56, 10:80 bytes, 80:83 c
 constexpr int kMsgBase = 10;
 constexpr int kMsgBytes = 14;
 constexpr int kCorrLane = 80;
+constexpr int kPlanes = 5;        // slicer sign planes
+constexpr int kWinPlaneWords = 19;  // words per plane in a win row (ops/demod.py::win_rows)
+constexpr int kWinCorrBase = 95;    // first correlation-bitplane word of a win row
 
 __constant__ int32_t c_tap[kPhases * kBits];  // (plane << 9) | sample offset
 __constant__ uint32_t c_syn112[kBits];
 __constant__ uint32_t c_syn56[56];
+// syn_bytes[pos][byte]: the syndrome of a 112-bit message that holds `byte`
+// at byte `pos` and zeros elsewhere (global memory; cand_rows stages it)
+__device__ uint32_t g_syn_bytes[kMsgBytes * 256];
 
 // What the gate's classification needs of one (candidate, phase).
 struct Phase {
@@ -71,93 +82,201 @@ __device__ __forceinline__ Phase phase(int ph, const Fetch& fetch, int32_t* o) {
     return r;
 }
 
-// Host pointers: tap int32[560], syn112 uint32[112], syn56 uint32[56]
-// (readsb_tpu_torch/ops/kernels.py::extract_tables_np).  Call once per
-// process and library, before the first launch.
-inline int set_tables(const void* tap, const void* syn112, const void* syn56) {
+// Host pointers: tap int32[560], syn112 uint32[112], syn56 uint32[56],
+// syn_bytes uint32[14, 256] (readsb_tpu_torch/ops/kernels.py::
+// extract_tables_np, syndrome_bytes_np).  Call once per process and
+// library, before the first launch.
+inline int set_tables(const void* tap, const void* syn112, const void* syn56,
+                      const void* syn_bytes) {
     cudaError_t e = cudaMemcpyToSymbol(c_tap, tap, sizeof(int32_t) * kPhases * kBits);
     if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_syn112, syn112, sizeof(uint32_t) * kBits);
     if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_syn56, syn56, sizeof(uint32_t) * 56);
+    if (e == cudaSuccess)
+        e = cudaMemcpyToSymbol(g_syn_bytes, syn_bytes, sizeof(uint32_t) * kMsgBytes * 256);
     return static_cast<int>(e);
 }
 
-// A candidate's window inside its win row (ops/demod.py::win_rows) staged
-// in shared memory: five planes x 19 words from lane 0, three correlation
-// bitplanes x 8 words from lane 95; aligned by offset & 255.
-struct WinRowFetch {
-    static constexpr int kPlaneWords = 19;
-    static constexpr int kCorrBase = 95;
-    const uint32_t* r;  // the candidate's row
-    int wrot;           // (offset & 255) >> 5
-    unsigned sb;        // offset & 31
 
-    __device__ __forceinline__ WinRowFetch(const uint32_t* row, uint32_t offset)
-        : r(row), wrot(static_cast<int>((offset & 255u) >> 5)), sb(offset & 31u) {}
+// ---------------------------------------------------------------------------
+// cand_rows: the kernel of gathered win rows (extract_syndromes.cu,
+// extract_classify_v3.cu).
+//
+// Bound on the H100: memory, 1028 B per candidate.  Design:
+//   * one lane per candidate, all five phases; a warp takes 32 candidates
+//     at a time, blocks of kWarps warps stride over the groups (at most two
+//     blocks per SM), so the 14 KB byte-syndrome table is staged in shared
+//     memory once per block;
+//   * the warp stages its 32 rows, 16-byte coalesced loads (one row per
+//     step), into slots of 31 chunks: an odd chunk stride, so the lanes'
+//     16-byte accesses to their own rows hit distinct banks; the 32 bytes
+//     past lane 119 are never read;
+//   * a lane aligns the 9 window words per plane that the taps reach
+//     (45 words, __funnelshift_r) into registers once;
+//   * every bit pick is a shift and a mask by immediates: the tap schedule
+//     is a template argument (extract_taps.cuh), one instantiation per
+//     phase, so no register array is indexed at run time;
+//   * syn112 is the XOR of 14 byte-table entries and syn56 of 7: the byte
+//     at position i of a 56-bit message lies as far from its end as byte
+//     i + 7 of a 112-bit one, so both use the same table;
+//   * the output row is written into the lane's slot, and leaves with
+//     16-byte stores, one row per step; the chunks past the used lanes are
+//     written as zeros straight from registers.
+// `post(ph, phase, o)` runs once per (candidate, phase) after the slice
+// and may write lanes of the output row up to Post::kLanes.
 
-    __device__ __forceinline__ uint32_t word(int plane, int j) const {
-        const int wi = plane * kPlaneWords + wrot + j;
-        return __funnelshift_r(r[wi], r[wi + 1], sb);
-    }
-    // correlation lane c (A, B, C) at the candidate sample
-    __device__ __forceinline__ int32_t corr(int c) const {
-        return static_cast<int32_t>((r[kCorrBase + c * 8 + wrot] >> sb) & 1u);
-    }
-};
-
-// The block shape of the kernels that slice gathered win rows
-// (extract_syndromes.cu, extract_classify_v3.cu): a block takes 32
-// candidates; their rows are staged into shared memory with coalesced
-// loads (row stride 129 words, so the per-candidate column reads hit
-// distinct banks) and written back the same way; one warp per phase
-// (5 warps), one lane per candidate.  `post(ph, phase, o)` runs once per
-// (candidate, phase) after the slice and may write further lanes of the
-// candidate's output row.  K is any size; the last block masks its
-// ragged edge.
-constexpr int kCand = 32;     // candidates per block
-constexpr int kStride = 129;  // padded shared-memory row stride
+constexpr int kWarps = 6;             // warps per block
+constexpr int kRowChunks = 30;        // 16-byte chunks of a win row that are read
+constexpr int kSlotChunks = 31;       // staged row stride: odd
+constexpr int kWinWords = 9;          // aligned window words per plane the taps reach
+constexpr size_t kRowsShared =
+    sizeof(uint32_t) * kMsgBytes * 256 + sizeof(uint4) * kWarps * 32 * kSlotChunks;
 
 struct NoPost {
+    static constexpr int kLanes = kUsedLanes;
     __device__ __forceinline__ void operator()(int, const Phase&, int32_t*) const {}
 };
 
-template <class Post>
-__global__ void __launch_bounds__(kCand * kPhases) rows_kernel(
-    const int32_t* __restrict__ rows, const int32_t* __restrict__ offsets,
-    int64_t k, int32_t* __restrict__ out, Post post) {
-    __shared__ uint32_t in_sh[kCand * kStride];
-    __shared__ int32_t out_sh[kCand * kStride];
-    const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kCand;
-    for (int j = threadIdx.x; j < kCand * kLanes; j += blockDim.x) {
-        const int c = j >> 7, l = j & 127;
-        const int64_t g = c0 + c;
-        in_sh[c * kStride + l] = g < k ? static_cast<uint32_t>(rows[g * kLanes + l]) : 0u;
-        out_sh[c * kStride + l] = 0;
+template <int P, int B>
+struct Tap {
+    static constexpr int tap = kTaps[P][B];
+    static constexpr int word = (tap >> 9) * kWinWords + ((tap & 511) >> 5);
+    static constexpr int shift = tap & 31;
+    static_assert(((tap & 511) >> 5) < kWinWords, "a tap past the aligned window");
+};
+
+using Window = uint32_t[kPlanes * kWinWords];
+
+// Bit B of phase P, at its place in its message byte (MSB first).
+template <int P, int B>
+__device__ __forceinline__ uint32_t pick(const Window& w) {
+    constexpr int s = Tap<P, B>::shift, k = 7 - (B & 7);
+    const uint32_t x = w[Tap<P, B>::word];
+    if constexpr (s >= k) {
+        return (x >> (s - k)) & (1u << k);
+    } else {
+        return (x << (k - s)) & (1u << k);
     }
+}
+
+template <int P, int I, int... J>
+__device__ __forceinline__ uint32_t byte_of(const Window& w, std::integer_sequence<int, J...>) {
+    return (pick<P, 8 * I + J>(w) | ...);
+}
+
+template <int P, int... I>
+__device__ __forceinline__ void bytes_of(const Window& w, uint32_t (&b)[kMsgBytes],
+                                         std::integer_sequence<int, I...>) {
+    ((b[I] = byte_of<P, I>(w, std::make_integer_sequence<int, 8>{})), ...);
+}
+
+// Phase P of one candidate: lanes P, 5 + P and 10 + 14 P .. 23 + 14 P of
+// its output row `o`, then the post step.
+template <int P, class Post>
+__device__ __forceinline__ void slice(const Window& w, const uint32_t* tbl, int32_t* o,
+                                      const Post& post) {
+    uint32_t b[kMsgBytes];
+    bytes_of<P>(w, b, std::make_integer_sequence<int, kMsgBytes>{});
+    Phase r{0u, 0u, b[0], 0u};
+#pragma unroll
+    for (int i = 0; i < kMsgBytes; ++i) {
+        r.syn112 ^= tbl[i * 256 + b[i]];
+        o[kMsgBase + P * kMsgBytes + i] = static_cast<int32_t>(b[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+        r.syn56 ^= tbl[(i + 7) * 256 + b[i]];
+        r.low7 |= b[i];
+    }
+    o[P] = static_cast<int32_t>(r.syn112);
+    o[kPhases + P] = static_cast<int32_t>(r.syn56);
+    post(P, r, o);
+}
+
+template <class Post>
+__global__ void __launch_bounds__(kWarps * 32, 2) cand_rows(
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ offsets, int64_t k,
+    int32_t* __restrict__ out, Post post) {
+    extern __shared__ uint4 smem[];
+    constexpr int kTableChunks = kMsgBytes * 256 / 4;
+    constexpr int kOutChunks = (Post::kLanes + 3) / 4;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const uint32_t* tbl = reinterpret_cast<const uint32_t*>(smem);
+    uint4* slots = smem + kTableChunks + warp * 32 * kSlotChunks;  // this warp's 32 rows
+    for (int i = threadIdx.x; i < kTableChunks; i += blockDim.x)
+        smem[i] = reinterpret_cast<const uint4*>(g_syn_bytes)[i];
     __syncthreads();
 
-    const int ph = threadIdx.x >> 5;  // phase index: warp-uniform
-    const int c = threadIdx.x & 31;   // candidate within the block
-    const int64_t g = c0 + c;
-    const WinRowFetch fetch(in_sh + c * kStride,
-                            g < k ? static_cast<uint32_t>(offsets[g]) : 0u);
-    int32_t* o = out_sh + c * kStride;
-    const Phase r = phase(ph, fetch, o);
-    if (ph < 3) o[kCorrLane + ph] = fetch.corr(ph);
-    post(ph, r, o);
-    __syncthreads();
+    const uint4* rows4 = reinterpret_cast<const uint4*>(rows);
+    uint4* out4 = reinterpret_cast<uint4*>(out);
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    const int64_t groups = (k + 31) / 32;
+    for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps + warp; g < groups;
+         g += static_cast<int64_t>(gridDim.x) * kWarps) {
+        const int64_t c0 = g * 32;
+        if (lane < kRowChunks) {
+#pragma unroll 8
+            for (int r = 0; r < 32; ++r)
+                slots[r * kSlotChunks + lane] = c0 + r < k ? __ldg(rows4 + (c0 + r) * 32 + lane) : zero;
+        }
+        const uint32_t off = c0 + lane < k ? static_cast<uint32_t>(__ldg(offsets + c0 + lane)) : 0u;
+        __syncwarp();
 
-    for (int j = threadIdx.x; j < kCand * kLanes; j += blockDim.x) {
-        const int cc = j >> 7, l = j & 127;
-        const int64_t gg = c0 + cc;
-        if (gg < k) out[gg * kLanes + l] = out_sh[cc * kStride + l];
+        // this lane's candidate, aligned by offset & 255
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(slots + lane * kSlotChunks);
+        const int wrot = static_cast<int>((off & 255u) >> 5);
+        const unsigned sb = off & 31u;
+        Window w;
+#pragma unroll
+        for (int p = 0; p < kPlanes; ++p) {
+            const uint32_t* q = row + p * kWinPlaneWords + wrot;
+            uint32_t lo = q[0];
+#pragma unroll
+            for (int j = 0; j < kWinWords; ++j) {
+                const uint32_t hi = q[j + 1];
+                w[p * kWinWords + j] = __funnelshift_r(lo, hi, sb);
+                lo = hi;
+            }
+        }
+        uint32_t corr[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) corr[c] = (row[kWinCorrBase + c * 8 + wrot] >> sb) & 1u;
+        __syncwarp();  // every row is read: the slots take the output rows
+
+        int32_t* o = reinterpret_cast<int32_t*>(slots + lane * kSlotChunks);
+        slice<0>(w, tbl, o, post);
+        slice<1>(w, tbl, o, post);
+        slice<2>(w, tbl, o, post);
+        slice<3>(w, tbl, o, post);
+        slice<4>(w, tbl, o, post);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) o[kCorrLane + c] = static_cast<int32_t>(corr[c]);
+#pragma unroll
+        for (int l = Post::kLanes; l < 4 * kOutChunks; ++l) o[l] = 0;
+        __syncwarp();
+
+#pragma unroll 8
+        for (int r = 0; r < 32; ++r) {
+            if (c0 + r < k)
+                out4[(c0 + r) * 32 + lane] = lane < kOutChunks ? slots[r * kSlotChunks + lane] : zero;
+        }
+        __syncwarp();  // the slots are read before the next group is staged
     }
 }
 
 template <class Post>
 int launch_rows(const void* rows, const void* offsets, long long k, void* out,
                 const Post& post, void* stream) {
-    const unsigned grid = static_cast<unsigned>((k + kCand - 1) / kCand);
-    rows_kernel<Post><<<grid, kCand * kPhases, 0, static_cast<cudaStream_t>(stream)>>>(
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(cand_rows<Post>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kRowsShared));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long blocks = (k + 32 * kWarps - 1) / (32 * kWarps);
+    const long long most = 2LL * sms;
+    cand_rows<Post><<<static_cast<unsigned>(blocks < most ? blocks : most), kWarps * 32,
+                      kRowsShared, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(rows), static_cast<const int32_t*>(offsets),
         static_cast<int64_t>(k), static_cast<int32_t*>(out), post);
     return static_cast<int>(cudaGetLastError());

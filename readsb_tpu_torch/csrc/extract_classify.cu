@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(kWarps * 32) warp_kernel(
         // aligned window word a = plane * 11 + j of the 55
         auto aligned = [&](int a) {
             const int p = a / 11;
-            const int i = p * extract::WinRowFetch::kPlaneWords + wrot + (a - p * 11);
+            const int i = p * extract::kWinPlaneWords + wrot + (a - p * 11);
             const uint32_t lo = row_word(i), hi = row_word(i + 1);
             return __funnelshift_r(lo, hi, sb);
         };
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(kWarps * 32) warp_kernel(
         uint32_t corr[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c)
-            corr[c] = (row_word(extract::WinRowFetch::kCorrBase + c * 8 + wrot) >> sb) & 1u;
+            corr[c] = (row_word(extract::kWinCorrBase + c * 8 + wrot) >> sb) & 1u;
         __syncwarp();  // the message bytes are complete
 
         if (lane < extract::kPhases) {
@@ -162,8 +162,8 @@ extern "C" const char* rtpu_cuda_error_string(int code) {
 }
 
 extern "C" int rtpu_extract_set_tables(const void* tap, const void* syn112,
-                                       const void* syn56) {
-    return extract::set_tables(tap, syn112, syn56);
+                                       const void* syn56, const void* syn_bytes) {
+    return extract::set_tables(tap, syn112, syn56, syn_bytes);
 }
 
 extern "C" int extract_classify(const void* rows, const void* offsets, long long k,

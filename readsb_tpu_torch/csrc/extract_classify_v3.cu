@@ -15,11 +15,11 @@
 // Bound on the H100: memory, 1028 B per candidate as extract_syndromes;
 // the tables are read from cache.  The TPU kernel is its v1 extraction
 // plus a classification block, and so is this one: extract.cuh's
-// rows_kernel (32 candidates per block, one warp per phase, one lane per
-// candidate) with classify::Post after the slice.  When its loop ends a
-// thread already holds its phase's syn112, syn56 and first message bytes
-// in registers, so the flag word costs three binary searches (<= 13 steps
-// each at nfix = 2) and no further memory traffic of its own.
+// cand_rows (one lane per candidate, all five phases) with classify::Post
+// after each phase's slice.  There a lane already holds the phase's
+// syn112, syn56 and first message bytes in registers, so the flag word
+// costs three binary searches (<= 13 steps each at nfix = 2) and no
+// further memory traffic of its own.
 
 #include "classify.cuh"
 #include "extract.cuh"
@@ -29,8 +29,8 @@ extern "C" const char* rtpu_cuda_error_string(int code) {
 }
 
 extern "C" int rtpu_extract_set_tables(const void* tap, const void* syn112,
-                                       const void* syn56) {
-    return extract::set_tables(tap, syn112, syn56);
+                                       const void* syn56, const void* syn_bytes) {
+    return extract::set_tables(tap, syn112, syn56, syn_bytes);
 }
 
 extern "C" int extract_classify_v3(const void* rows, const void* offsets, long long k,

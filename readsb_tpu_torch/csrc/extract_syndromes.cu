@@ -12,12 +12,11 @@
 //
 // Bound on the H100: memory.  The function moves 1028 B per candidate
 // (a 512 B row and a 4 B offset in, a 512 B row out) against ~5 x 112
-// bit picks and XORs.  The design is extract.cuh's rows_kernel (32
-// candidates per block staged through shared memory, one warp per phase,
-// one lane per candidate) with nothing after the slice:
-//   * the window alignment by offset & 255 is a word rotation (s >> 5) plus
-//     a logical funnel shift (s & 31) on uint32 (extract::WinRowFetch);
-//   * the per-(candidate, phase) loop is extract::phase.
+// bit picks and 5 x 21 table reads.  The design is extract.cuh's cand_rows
+// (one lane per candidate and all five phases, rows staged per warp with
+// 16-byte accesses, the tap schedule fixed at compile time, syndromes by
+// bytes) with nothing after the slice.  The window alignment by
+// offset & 255 is a word offset (s >> 5) plus a funnel shift (s & 31).
 
 #include "extract.cuh"
 
@@ -26,8 +25,8 @@ extern "C" const char* rtpu_cuda_error_string(int code) {
 }
 
 extern "C" int rtpu_extract_set_tables(const void* tap, const void* syn112,
-                                       const void* syn56) {
-    return extract::set_tables(tap, syn112, syn56);
+                                       const void* syn56, const void* syn_bytes) {
+    return extract::set_tables(tap, syn112, syn56, syn_bytes);
 }
 
 extern "C" int extract_syndromes(const void* rows, const void* offsets, long long k,

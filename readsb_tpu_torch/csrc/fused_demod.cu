@@ -29,8 +29,8 @@
 // gather products, triangular-product prefixes and per-row select loops
 // answer constraints this card does not have.  Design:
 //   * one block of 1024 threads per tile, walking the tile and its
-//     1024-sample halo in 65 chunks of 1024 samples with the arithmetic of
-//     dense_scan.cuh's dense_main; a sample past the end reads 0;
+//     1024-sample halo in 65 chunks of 1024 samples, one thread per sample,
+//     with the arithmetic of dense_scan.cuh; a sample past the end reads 0;
 //   * sign planes and correlation bits are ballot-packed into shared
 //     memory only (5 x 2080 + 3 x 2048 words), so the block asks for
 //     dynamic shared memory above 48 KB;
@@ -42,12 +42,80 @@
 //     shared-memory plane words at (offset >> 5): no win rows, no gather;
 //     192 rows at a time (6 groups of 32 candidates x 5 phase warps) are
 //     staged in shared memory and written back coalesced;
-//   * blocks run in no order, so the prefix sums are dense_scan.cuh's
-//     reduce-then-scan: block_sums and scan_totals run first in the same
-//     entry point, and each chunk adds its 1024-sample block's offset.
+//   * blocks run in no order, so the prefix sums are a reduce-then-scan:
+//     block_sums and scan_totals (below) run first in the same entry
+//     point, and each chunk adds its 1024-sample block's offset.
 
 #include "dense_scan.cuh"
 #include "extract.cuh"
+
+// The reduce-then-scan passes of the prefix sums, and the block scan that
+// the tile kernel shares with them, beside dense_scan.cuh's single pass.
+namespace dense {
+
+constexpr int kBlock = 1024;  // samples (= threads) per block
+constexpr int kScanThreads = 1024;
+
+// Block-wide inclusive scan of two values (blockDim.x == 1024).
+__device__ inline void block_inclusive_scan2(uint32_t& a, uint32_t& b, uint32_t (*tot)[32]) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    a = warp_inclusive_scan(a);
+    b = warp_inclusive_scan(b);
+    if (lane == 31) {
+        tot[0][warp] = a;
+        tot[1][warp] = b;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        uint32_t ta = tot[0][lane], tb = tot[1][lane];
+        uint32_t ia = warp_inclusive_scan(ta), ib = warp_inclusive_scan(tb);
+        tot[0][lane] = ia - ta;  // exclusive
+        tot[1][lane] = ib - tb;
+    }
+    __syncthreads();
+    a += tot[0][warp];
+    b += tot[1][warp];
+}
+
+// Pass 1: per-block sums of mag^2 >> 16 and mag^2 & 0xffff.
+__global__ void __launch_bounds__(kBlock) block_sums(
+    const uint16_t* __restrict__ in, uint32_t* __restrict__ sums, int64_t nblk) {
+    __shared__ uint32_t tot[2][32];
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+    const uint32_t m = in[i];
+    const uint32_t s = m * m;
+    uint32_t hi = s >> 16, lo = s & 0xffffu;
+    block_inclusive_scan2(hi, lo, tot);
+    if (threadIdx.x == kBlock - 1) {
+        sums[blockIdx.x] = hi;
+        sums[nblk + blockIdx.x] = lo;
+    }
+}
+
+// Pass 2: exclusive scan of the nblk block totals, in place (one block).
+__global__ void __launch_bounds__(kScanThreads) scan_totals(uint32_t* __restrict__ sums, int64_t nblk) {
+    __shared__ uint32_t tot[2][32];
+    const int64_t per = (nblk + kScanThreads - 1) / kScanThreads;
+    const int64_t j0 = threadIdx.x * per;
+    const int64_t j1 = j0 + per < nblk ? j0 + per : nblk;
+    uint32_t a = 0, b = 0;
+    for (int64_t j = j0; j < j1; ++j) {
+        a += sums[j];
+        b += sums[nblk + j];
+    }
+    uint32_t ia = a, ib = b;
+    block_inclusive_scan2(ia, ib, tot);
+    uint32_t ea = ia - a, eb = ib - b;  // exclusive prefix of this thread's chunk
+    for (int64_t j = j0; j < j1; ++j) {
+        uint32_t va = sums[j], vb = sums[nblk + j];
+        sums[j] = ea;
+        sums[nblk + j] = eb;
+        ea += va;
+        eb += vb;
+    }
+}
+
+}  // namespace dense
 
 namespace {
 
@@ -231,8 +299,8 @@ __global__ void __launch_bounds__(dense::kBlock) fused_tile(
 // rtpu_cuda_error_string comes with dense_scan.cuh (uc8_mag.cuh).
 
 extern "C" int rtpu_extract_set_tables(const void* tap, const void* syn112,
-                                       const void* syn56) {
-    return extract::set_tables(tap, syn112, syn56);
+                                       const void* syn56, const void* syn_bytes) {
+    return extract::set_tables(tap, syn112, syn56, syn_bytes);
 }
 
 // The prefix-sum passes and the tile kernel on one stream.  n = 65536 T or
@@ -249,7 +317,7 @@ extern "C" int fused_demod(const void* mag, long long n, int threshold, int cap,
     cudaError_t e = cudaFuncSetAttribute(
         fused_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSharedBytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    dense::block_sums<dense::MagLoader><<<static_cast<unsigned>(nblk), dense::kBlock, 0, s>>>(
+    dense::block_sums<<<static_cast<unsigned>(nblk), dense::kBlock, 0, s>>>(
         in, sums, nblk);
     dense::scan_totals<<<1, dense::kScanThreads, 0, s>>>(sums, nblk);
     fused_tile<<<static_cast<unsigned>(n / kTile), dense::kBlock, kSharedBytes, s>>>(

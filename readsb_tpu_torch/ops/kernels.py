@@ -20,8 +20,9 @@ the kernel launches, so a run can show that the main path used them.
 The output contracts are those of readsb_tpu.ops.pallas_kernels
 dense_scan_uc8_pallas, extract_syndromes_pallas, mag_uc8_pallas,
 dense_scan_pallas, extract_classify_v3_pallas and extract_classify_pallas.
-The two dense scans share one body (csrc/dense_scan.cuh), the extractions
-one loop (csrc/extract.cuh) and the classifiers one function
+The two dense scans share one kernel (csrc/dense_scan.cuh), kernels 2 and
+5 one block kernel (csrc/extract.cuh, with the compile-time tap schedule of
+csrc/extract_taps.cuh) and the classifiers one function
 (csrc/classify.cuh).  The seventh kernel, the fused per-tile demodulator,
 has its wrapper in ops/fused.py and is built and loaded here.
 """
@@ -40,7 +41,7 @@ import torch
 
 from .. import BUILD_DIR
 from . import crc as crc_ops
-from .convert import mag_uc8_words, mag_uc8_words_i32, uc8_lut_np
+from .convert import mag_uc8_words, mag_uc8_words_i32, sq_table_np, uc8_lut_np
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = (
@@ -52,7 +53,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 TILE = 65536  # dense-scan length granule (the Pallas kernel's tile)
-DENSE_BLOCK = 1024  # samples per CUDA block of the dense scan (csrc)
+DENSE_TILE = 8192  # samples per CUDA block of the dense scan (csrc/dense_scan.cuh)
+DENSE_BLOCK = 1024  # samples per CUDA block of the fused kernel's prefix passes
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -131,7 +133,7 @@ _ARGTYPES = {
     "extract_classify": [*_CLASSIFY_ARGS, _P, _P, _P],
     "fused_demod": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
-# libraries built on csrc/extract.cuh hold its __constant__ tables
+# libraries built on csrc/extract.cuh hold its tables
 _EXTRACT_LIBS = ("extract_syndromes", "extract_classify_v3", "extract_classify", "fused_demod")
 
 
@@ -147,11 +149,15 @@ def _lib(name: str) -> ctypes.CDLL:
             fn.argtypes = _ARGTYPES[name]
             if name in _EXTRACT_LIBS:
                 lib.rtpu_extract_set_tables.restype = ctypes.c_int
-                lib.rtpu_extract_set_tables.argtypes = [_P] * 3
-                tap, s112, s56 = extract_tables_np()
-                _check(lib, lib.rtpu_extract_set_tables(
-                    tap.ctypes.data, s112.ctypes.data, s56.ctypes.data
-                ), "rtpu_extract_set_tables")
+                lib.rtpu_extract_set_tables.argtypes = [_P] * 4
+                tables = (*extract_tables_np(), syndrome_bytes_np())
+                _check(lib, lib.rtpu_extract_set_tables(*(t.ctypes.data for t in tables)),
+                       "rtpu_extract_set_tables")
+            if name == "dense_scan_uc8":
+                lib.rtpu_dense_set_table.restype = ctypes.c_int
+                lib.rtpu_dense_set_table.argtypes = [_P]
+                _check(lib, lib.rtpu_dense_set_table(sq_table_np().ctypes.data),
+                       "rtpu_dense_set_table")
             _libs[name] = lib
         return _libs[name]
 
@@ -261,16 +267,24 @@ def dense_scan_uc8_plain(words: torch.Tensor, threshold: int):
     return dense_from_mag(mag_uc8_words_i32(words), threshold, tail=int(uc8_lut_np()[0]))
 
 
+def dense_scratch_words(n: int) -> int:
+    """int32 words of the dense scan's scratch at length n: a 32-word head
+    (the tile ticket) and per tile a status flag and two pairs of sums."""
+    return 32 + 6 * (n // DENSE_TILE)
+
+
 def _launch_dense(name: str, samples: torch.Tensor, threshold: int):
     """Allocate the outputs and launch the dense-scan library `name`."""
     samples = samples.contiguous()
+    if samples.data_ptr() % 16:  # the kernel reads 16-byte chunks
+        samples = samples.clone()
     n = samples.shape[0]
     dev = samples.device
     corr = torch.empty(n, dtype=torch.int8, device=dev)
     pwords = torch.empty((5, n // 32), dtype=torch.int32, device=dev)
     cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
     cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * (n // DENSE_BLOCK), dtype=torch.int32, device=dev)
+    scratch = torch.empty(dense_scratch_words(n), dtype=torch.int32, device=dev)
     lib = _lib(name)
     rc = getattr(lib, name)(
         samples.data_ptr(), n, int(threshold),
@@ -386,6 +400,21 @@ def extract_tables_np() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     s112 = crc_ops.single_bit_syndromes(112).astype(np.uint32)
     s56 = crc_ops.single_bit_syndromes(56).astype(np.uint32)
     return np.ascontiguousarray(tap), np.ascontiguousarray(s112), np.ascontiguousarray(s56)
+
+
+@functools.lru_cache(maxsize=None)
+def syndrome_bytes_np() -> np.ndarray:
+    """uint32[14, 256]: t[pos, byte] = the CRC-24 syndrome of a 112-bit
+    message that holds `byte` at byte `pos` and zeros elsewhere, the XOR of
+    the per-bit syndromes of its set bits.  A message's syndrome is the XOR
+    of its bytes' entries; byte pos of a 56-bit message lies as far from
+    its end as byte pos + 7 of a 112-bit one, so it takes row pos + 7."""
+    s112 = crc_ops.single_bit_syndromes(112).astype(np.uint32).reshape(14, 8)
+    bits = (np.arange(256)[:, None] >> (7 - np.arange(8))[None, :]) & 1  # (256, 8), MSB first
+    table = np.zeros((14, 256), dtype=np.uint32)
+    for i in range(8):
+        table ^= np.where(bits[None, :, i] == 1, s112[:, i, None], np.uint32(0))
+    return np.ascontiguousarray(table)
 
 
 def aligned_window(rows: torch.Tensor, offsets: torch.Tensor):

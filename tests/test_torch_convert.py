@@ -13,6 +13,7 @@ import torch
 
 from readsb_tpu.ops import convert as jax_convert
 from readsb_tpu.ops.pallas_kernels import (
+    _sq_table_np,
     dense_scan_pallas,
     dense_scan_uc8_pallas,
     mag_uc8_pallas,
@@ -207,3 +208,27 @@ def test_mag_with_dc_against_jax(fmt):
     diff = np.abs(mag.numpy().astype(np.int64) - np.asarray(jm).astype(np.int64))
     assert diff.max() <= 4
     np.testing.assert_allclose(z.numpy(), np.asarray(jz), atol=5e-5, rtol=0)
+
+
+def test_kernel_sq_table_is_the_reference_table():
+    """The fi^2 table that the dense-scan library loads (convert.sq_table_np)
+    equals readsb_tpu's symmetric half, mirrors it, and equals fi^2 of the
+    correctly rounded float32 quotient (2i - 255) / 255 on all 256 entries."""
+    sq = convert.sq_table_np()
+    assert sq.dtype == np.float32 and sq.shape == (256,)
+    np.testing.assert_array_equal(sq[:128], _sq_table_np())
+    np.testing.assert_array_equal(sq[::-1], sq)
+    i = np.arange(256, dtype=np.float32)
+    fi = (np.float32(2) * i - np.float32(255)) / np.float32(255)
+    np.testing.assert_array_equal(sq, fi * fi)
+
+
+def test_kernel_magnitude_expression_over_the_table_is_the_lut():
+    """The kernels' float32 expression over the table (uc8_mag.cuh: add,
+    min, sqrt, scale, + 0.5, truncate; one rounding each) gives
+    readsb_tpu's LUT on all 65536 pairs."""
+    sq = convert.sq_table_np()
+    w = _all_pairs_words().astype(np.int64)
+    s = np.minimum(sq[w & 255] + sq[w >> 8], np.float32(1.0))
+    m = (np.sqrt(s) * np.float32(65535.0) + np.float32(0.5)).astype(np.uint32)
+    np.testing.assert_array_equal(m, jax_convert.uc8_lut_np()[(w & 255) * 256 + (w >> 8)])

@@ -34,7 +34,33 @@ def test_dense_scan_kernel_equals_plain(dev):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("k", [1, 31, 32, 33, 5000])
+@pytest.mark.parametrize("case", ["random-65536", "unaligned-65536", "random-full",
+                                  "zeros-full", "silence-full"])
+@pytest.mark.parametrize("name", ["dense_scan_uc8", "dense_scan"])
+def test_dense_kernels_equal_plain_at_scale(dev, name, case):
+    """n = 65536 (also from a view that is not 16-byte aligned) and the main
+    path's n = 8,454,144 (1032 tiles of 8192): random words; all-zero words
+    (uc8: full-scale magnitudes, so the prefix sums wrap and the look-back
+    crosses every tile); all-0x8080 words (near silence).  The plain
+    version runs on the card too."""
+    n = 65536 if case.endswith("65536") else 8454144
+    if case.startswith("zeros"):
+        words = torch.zeros(n, dtype=torch.uint16, device=dev)
+    elif case.startswith("silence"):
+        words = torch.full((n,), 0x8080, dtype=torch.uint16, device=dev)
+    else:
+        rng = np.random.default_rng(n)
+        words = torch.from_numpy(rng.integers(0, 65536, n + 1, dtype=np.int64).astype(np.uint16))
+        words = words.to(dev)[1:] if case.startswith("unaligned") else words[:n].to(dev)
+    fn = getattr(kernels, name)
+    before = fn.launches
+    got = fn(words, 58)
+    assert fn.launches == before + 1
+    for g, w in zip(got, getattr(kernels, name + "_plain")(words, 58)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 4097, 5000, 131072])
 def test_extract_kernel_equals_plain(dev, k):
     rng = np.random.default_rng(k)
     rows = torch.from_numpy(rng.integers(-(2**31), 2**31, (k, 128), dtype=np.int64).astype(np.int32))
@@ -182,6 +208,15 @@ def capture_rows():
     assert 1000 < int(n_cand) < 131072
     rows[-64:] = 0  # all-zero messages, for the zero7 flag
     return rows, offsets, mag
+
+
+def test_extract_kernel_equals_plain_on_capture_rows(dev, capture_rows):
+    rows, offsets, _ = capture_rows
+    before = kernels.extract_syndromes.launches
+    got = kernels.extract_syndromes(rows.to(dev), offsets.to(dev))
+    assert kernels.extract_syndromes.launches == before + 1
+    assert torch.equal(got.cpu(), kernels.extract_syndromes_plain(rows, offsets))
+    assert got[:, 10:80].any()
 
 
 @pytest.mark.parametrize("name", ["extract_classify_v3", "extract_classify"])

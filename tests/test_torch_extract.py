@@ -5,6 +5,9 @@ Mosaic interpreter (interpret=True) on a 0.2 s capture's win rows, as
 tests/test_pallas.py holds the Pallas kernel to the jnp chain.  Tolerance 0.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -113,3 +116,39 @@ def test_kernel_tables_are_the_lattice_and_syndromes():
         m = jax_crc.syndrome_matrix(bits).astype(np.int64)
         packed = (m << np.arange(23, -1, -1)).sum(axis=1)
         np.testing.assert_array_equal(syn.astype(np.int64), packed)
+
+
+@pytest.mark.parametrize("nbytes", [14, 7], ids=["112-bit", "56-bit"])
+def test_byte_syndrome_table_matches_the_bit_syndromes(nbytes):
+    """For random messages (and all-zero and all-one ones), the XOR of the
+    byte-table entries that the extraction kernel reads (a 56-bit
+    message's byte i at row i + 7) equals the XOR of the per-bit syndromes
+    of the set bits, and readsb_tpu's syndrome-matrix product."""
+    table = kernels.syndrome_bytes_np()
+    assert table.shape == (14, 256) and table.dtype == np.uint32
+    bits = nbytes * 8
+    rng = np.random.default_rng(nbytes)
+    msgs = np.concatenate([rng.integers(0, 256, (300, nbytes)),
+                           np.zeros((1, nbytes), np.int64), np.full((1, nbytes), 255)])
+    rows = np.arange(nbytes) + 14 - nbytes
+    by_bytes = np.bitwise_xor.reduce(table[rows[None, :], msgs], axis=1)
+    msg_bits = ((msgs[:, :, None] >> np.arange(7, -1, -1)) & 1).reshape(len(msgs), bits)
+    single = crc.single_bit_syndromes(bits).astype(np.uint32)
+    by_bits = np.bitwise_xor.reduce(np.where(msg_bits == 1, single[None, :], np.uint32(0)), axis=1)
+    m = jax_crc.syndrome_matrix(bits).astype(np.int64)
+    by_matrix = ((msg_bits @ m) & 1) @ (1 << np.arange(23, -1, -1))
+    np.testing.assert_array_equal(by_bytes, by_bits)
+    np.testing.assert_array_equal(by_bytes.astype(np.int64), by_matrix)
+
+
+def test_compile_time_tap_header_is_the_tap_table():
+    """csrc/extract_taps.cuh, parsed as text, holds extract_tables_np()'s
+    560 taps in (phase, bit) order, and every tap lies in the 9 aligned
+    window words per plane that the extraction kernel keeps."""
+    text = (pathlib.Path(kernels.CSRC) / "extract_taps.cuh").read_text()
+    body = text[text.index("kTaps[5][112] = {"):]
+    body = body[body.index("{"):body.index("};")]
+    taps = np.array([int(v) for v in re.findall(r"\d+", body)])
+    tap = kernels.extract_tables_np()[0]
+    np.testing.assert_array_equal(taps, tap)
+    assert int(((tap & 511) >> 5).max()) < 9
