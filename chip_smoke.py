@@ -15,7 +15,7 @@ just before and read just after:
                    (extract_classify_v3; once more with the plan-order
                    kernel extract_classify in its place)
   USE_FUSED        the raw route with ops.demod.USE_FUSED set: stages 1-4
-                   are one kernel per tile (fused_demod), through
+                   are one cluster of eight blocks per tile (fused_demod), through
                    MultiDemodulator(64) and Demodulator(blocks_per_batch=4)
 
 It holds every kernel against its plain PyTorch version on the card at
@@ -120,8 +120,10 @@ def time_ms(fn, reps: int = 15, warm: int = 2, inner: int = 1) -> float:
 def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> tuple[float, float]:
     """(device ms, device launches) per call of fn, from torch.profiler:
     the time of the kernels and memsets whose names contain one of `names`,
-    what the card spends without the host's enqueue, and the count of every
-    device activity.  Raises when no activity matches the names."""
+    what the card spends without the host's enqueue, per launch of the
+    first name's kernel (the profiler may drop an activity now and then),
+    and the count of every device activity per call.  Raises when no
+    activity matches the names."""
     fn()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -133,7 +135,9 @@ def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> tuple[float, float]:
     if not hits:
         raise SystemExit(f"chip_smoke: FAILED: no device activity named {names} in "
                          f"{[e.key[:60] for e in dev]}")
-    return (sum(e.self_device_time_total for e in hits) / reps / 1e3,
+    main = sum(e.count for e in hits if names[0] in e.key)
+    check(main > 0, f"no launch of {names[0]} under the profiler")
+    return (sum(e.self_device_time_total for e in hits) / main / 1e3,
             sum(e.count for e in dev) / reps)
 
 
@@ -614,17 +618,17 @@ def main() -> None:
     ms_ex5 = time_ms(lambda: kernels.extract_syndromes(rows, offsets), inner=5)
     plain_cls = time_ms(lambda: kernels.extract_classify_v3_plain(*cls_args, **cls_kw), reps=5)
     plain_cls2 = time_ms(lambda: kernels.extract_classify_plain(*cls_args, **cls_kw), reps=5)
+    # #2, #5 and #6 are one block kernel each (cand_rows); #7 a memset of
+    # the ticket and flags, then the cluster kernel fused_tile
     dev_ex, calls_ex = device_ms(lambda: kernels.extract_syndromes(rows, offsets), ("cand_rows",))
-    dev_cls, _ = device_ms(lambda: kernels.extract_classify_v3(*cls_args, **cls_kw),
-                           ("cand_rows",))
-    dev_cls2, _ = device_ms(lambda: kernels.extract_classify(*cls_args, **cls_kw),
-                            ("warp_kernel",))
+    dev_cls, calls_cls = device_ms(lambda: kernels.extract_classify_v3(*cls_args, **cls_kw),
+                                   ("cand_rows",))
+    dev_cls2, calls_cls2 = device_ms(lambda: kernels.extract_classify(*cls_args, **cls_kw),
+                                     ("cand_rows",))
     ms_fu = time_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw))
     plain_fu = time_ms(lambda: fused.fused_demod_tiles_plain(mag_f, thr, **fused_kw), reps=5)
-    dev_fu, _ = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
-                          ("fused_tile", "block_sums", "scan_totals"))
-    dev_fu_tile, _ = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
-                               ("fused_tile",))
+    dev_fu, calls_fu = device_ms(lambda: fused.fused_demod_tiles(mag_f, thr, **fused_kw),
+                                 ("fused_tile", "Memset"))
     k_rows = rows.shape[0]
     dense_bytes = n * 2 + n * 1 + 5 * (n // 32) * 4 + 2 * n * 4
     ex_bytes = k_rows * (128 * 4 + 4 + 128 * 4)
@@ -667,6 +671,9 @@ def main() -> None:
         ("dense_scan_uc8", ms_dense, dev_dense, calls_dense, b_dense),
         ("dense_scan", ms_densem, dev_densem, calls_densem, b_dense),
         ("extract_syndromes", ms_ex, dev_ex, calls_ex, b_ex),
+        ("extract_classify_v3", ms_cls, dev_cls, calls_cls, b_cls),
+        ("extract_classify", ms_cls2, dev_cls2, calls_cls2, b_cls),
+        ("fused_demod", ms_fu, dev_fu, calls_fu, b_fu),
     ):
         log(f"{name}: {ms:.4f} ms by events ({b / ms * 100:.1f}% of the bound), "
             f"{dms:.4f} ms of device time ({b / dms * 100:.1f}%), bound {b:.4f} ms, "
@@ -678,9 +685,11 @@ def main() -> None:
         f"{ms_ex5:.4f} ms, extract_classify_v3 {ms_cls:.4f} ms ({ms_cls / ms_ex5:.3f}x), "
         f"extract_classify {ms_cls2:.4f} ms ({ms_cls2 / ms_cls:.3f}x of v3); device time alone "
         f"{dev_ex:.4f} / {dev_cls:.4f} / {dev_cls2:.4f} ms on {card}")
-    log(f"fused_demod: device time alone {dev_fu:.4f} ms (tile kernel {dev_fu_tile:.4f} ms) "
-        f"against dense_scan + extract_syndromes {dev_densem + dev_ex:.4f} ms of the stages it "
-        f"replaces (their torch stages not counted) on {card}")
+    log(f"device time against extract_syndromes: extract_classify_v3 {dev_cls / dev_ex:.3f}x, "
+        f"extract_classify {dev_cls2 / dev_ex:.3f}x on {card}")
+    log(f"fused_demod: device time alone {dev_fu:.4f} ms against dense_scan + "
+        f"extract_syndromes {dev_densem + dev_ex:.4f} ms of the stages it replaces (their "
+        f"torch stages not counted) on {card}")
 
     # --- end to end -----------------------------------------------------------
     def dispatch():
@@ -834,6 +843,7 @@ def main() -> None:
             "launches": launches_fc["extract_classify_v3"], "max_abs_err": err_cls,
             "ms": ms_cls, "plain_ms": plain_cls, "bound_ms": b_cls,
             "bound_by": by_cls, "library_ms": None, "device_ms": dev_cls,
+            "device_launches_per_call": calls_cls,
         },
         {
             "name": "extract_classify", "route": "cuda",
@@ -842,6 +852,7 @@ def main() -> None:
             "launches": launches_v2["extract_classify"], "max_abs_err": err_cls2,
             "ms": ms_cls2, "plain_ms": plain_cls2, "bound_ms": b_cls,
             "bound_by": by_cls, "library_ms": None, "device_ms": dev_cls2,
+            "device_launches_per_call": calls_cls2,
         },
         {
             "name": "fused_demod", "route": "cuda",
@@ -850,6 +861,7 @@ def main() -> None:
             "launches": launches_fu["fused_demod"], "max_abs_err": err_fu,
             "ms": ms_fu, "plain_ms": plain_fu, "bound_ms": b_fu,
             "bound_by": by_fu, "library_ms": None, "device_ms": dev_fu,
+            "device_launches_per_call": calls_fu,
         },
     ]}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,10 @@
 
 // n % 8192 == 0 (the wrapper asks for n % 65536 == 0); scratch holds
 // dense::kHead + 6 * n / 8192 uint32.  Returns the first CUDA error.
+extern "C" int rtpu_init(int* device) {
+    return rtpu::init(device, [](int) { return dense::prepare<dense::MagLoader>(); });
+}
+
 extern "C" int dense_scan(const void* mag, long long n, int threshold,
                           void* corr, void* pwords, void* cs_hi, void* cs_lo,
                           void* scratch, void* stream) {

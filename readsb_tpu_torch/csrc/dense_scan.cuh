@@ -11,6 +11,10 @@
 //   MagLoader  uint16 magnitude, used as it is; a sample past the end
 //              reads as magnitude 0
 //
+// fused_demod.cu's blocks run the same body on their sub-tiles: the
+// per-thread math (load_thread, scan_samples), the staged prefix-sum
+// stores and the look-back are device functions here for that reason.
+//
 // Contract (readsb_tpu_torch/ops/kernels.py):
 //
 //   in       uint16[n]  samples, n % 8192 == 0, 16-byte aligned
@@ -132,6 +136,104 @@ __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v) {
     return v;
 }
 
+// Samples 32u .. 32u + 55 of a staged tile into 28 registers, two per word,
+// low half first (16-byte reads of chunks 4u .. 4u + 6).
+__device__ __forceinline__ void load_thread(const uint4* mag4, int u, uint32_t (&m2)[28]) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+        const uint4 r = mag4[sw_mag(4 * u + k)];
+        m2[4 * k] = r.x;
+        m2[4 * k + 1] = r.y;
+        m2[4 * k + 2] = r.z;
+        m2[4 * k + 3] = r.w;
+    }
+}
+
+__device__ __forceinline__ int32_t mag_at(const uint32_t (&m2)[28], int s) {
+    return static_cast<int32_t>((s & 1) ? m2[s >> 1] >> 16 : m2[s >> 1] & 0xffffu);
+}
+
+// The dense math of one thread's 32 samples (load_thread's registers):
+// per sample j, emit(j, ca, cb, cc, cand) with the three correlations and
+// the candidate bit; the five sign-plane words (bit j = sample j); the sums
+// of mag^2 >> 16 and mag^2 & 0xffff.
+template <class Emit>
+__device__ __forceinline__ void scan_samples(const uint32_t (&m2)[28], int thr, uint32_t (&pl)[5],
+                                             uint32_t& hi, uint32_t& lo, Emit&& emit) {
+#pragma unroll
+    for (int q = 0; q < 5; ++q) pl[q] = 0u;
+    hi = 0u;
+    lo = 0u;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+        int32_t p[kHalo];
+#pragma unroll
+        for (int d = 0; d < kHalo; ++d) p[d] = mag_at(m2, j + d);
+        // preamble pre-check + 3 correlations (demod_2400.c:311-378)
+        const bool pre = (p[1] > p[7]) & (p[12] > p[14]) & (p[12] > p[15]);
+        const int32_t ref = ((p[5] + p[8] + p[16] + p[17] + p[18]) * thr) >> 5;
+        const int32_t d23 = p[2] - p[3];
+        const int32_t s14 = p[1] + p[4];
+        const int32_t d1011 = p[10] - p[11];
+        const int32_t common = s14 - d23 + p[9] + p[12];
+        const bool ca = (common - d1011) >= ref;
+        const bool cb = (common + d1011) >= ref;
+        const bool cc = (s14 + 2 * d23 + d1011 + p[12]) >= ref;
+        emit(j, ca, cb, cc, pre & (ca | cb | cc));
+        // slicer sign planes (demod_2400.c:74-93): x > 0 is the sign bit of
+        // -x (|x| < 2^21), so no predicate is packed into the plane word
+        const int32_t s0 = p[0], s1 = p[1], s2 = p[2], s3 = p[3];
+        pl[0] |= positive(18 * s0 - 15 * s1 - 3 * s2) << j;
+        pl[1] |= positive(14 * s0 - 5 * s1 - 9 * s2) << j;
+        pl[2] |= positive(16 * s0 + 5 * s1 - 20 * s2) << j;
+        pl[3] |= positive(7 * s0 + 11 * s1 - 18 * s2) << j;
+        pl[4] |= positive(4 * s0 + 15 * s1 - 20 * s2 + s3) << j;
+        const uint32_t sqm = static_cast<uint32_t>(s0) * static_cast<uint32_t>(s0);
+        hi += sqm >> 16;
+        lo += sqm & 0xffffu;
+    }
+}
+
+// The block's two inclusive prefix sums of its 8192 samples (thread t owns
+// samples 32t .. 32t + 31 in m2; oh / ol: the sums before them) through the
+// swizzled staging buffer out4, as coalesced 16-byte stores to hi[0:8192]
+// and lo[0:8192].  Every thread calls it; out4 is free on entry and on exit.
+__device__ __forceinline__ void store_prefix_sums(uint4* out4, const uint32_t (&m2)[28],
+                                                  uint32_t oh, uint32_t ol,
+                                                  int32_t* hi, int32_t* lo) {
+    const int t = threadIdx.x;
+    auto stage = [&](uint32_t run, bool high) {
+#pragma unroll
+        for (int k = 0; k < kPer / 4; ++k) {
+            uint32_t o[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const uint32_t s = static_cast<uint32_t>(mag_at(m2, 4 * k + i));
+                run += high ? (s * s) >> 16 : (s * s) & 0xffffu;
+                o[i] = run;
+            }
+            out4[sw_out(8 * t + k)] = make_uint4(o[0], o[1], o[2], o[3]);
+        }
+    };
+    auto flush = [&](int32_t* dst) {
+        uint4* d4 = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+        for (int i = 0; i < kOutChunks / kThreads; ++i) {
+            const int c = t + i * kThreads;
+            d4[c] = out4[sw_out(c)];
+        }
+    };
+    __syncthreads();  // out4 is free
+    stage(oh, true);
+    __syncthreads();
+    flush(hi);
+    __syncthreads();
+    stage(ol, false);
+    __syncthreads();
+    flush(lo);
+    __syncthreads();
+}
+
 // Warp 0: the (hi, lo) sums of tiles [0, tile), from the predecessors'
 // published aggregates back to the nearest inclusive prefix.
 __device__ __forceinline__ uint2 look_back(const uint32_t* flags, const uint2* agg,
@@ -156,6 +258,30 @@ __device__ __forceinline__ uint2 look_back(const uint32_t* flags, const uint2* a
         el += __reduce_add_sync(kFull, v.y);
         if (pm) return make_uint2(eh, el);
     }
+}
+
+// Warp 0 of tile `tile`: publish its sums (th, tl), look back, publish its
+// inclusive prefix.  Returns the sums of tiles [0, tile).
+__device__ __forceinline__ uint2 publish_and_look_back(uint32_t* flags, uint2* agg, uint2* prefix,
+                                                       int64_t tile, uint32_t th, uint32_t tl) {
+    const int lane = threadIdx.x & 31;
+    if (tile == 0) {
+        if (lane == 0) {
+            __stcg(prefix, make_uint2(th, tl));
+            st_release(flags, kPrefix);
+        }
+        return make_uint2(0u, 0u);
+    }
+    if (lane == 0) {
+        __stcg(agg + tile, make_uint2(th, tl));
+        st_release(flags + tile, kAggregate);
+    }
+    const uint2 ex = look_back(flags, agg, prefix, tile);
+    if (lane == 0) {
+        __stcg(prefix + tile, make_uint2(ex.x + th, ex.y + tl));
+        st_release(flags + tile, kPrefix);
+    }
+    return ex;
 }
 
 template <class Loader>
@@ -196,51 +322,14 @@ __global__ void __launch_bounds__(kThreads, 3) dense_tile(
     __syncthreads();
 
     // ---- this thread's 32 samples and their 19-sample lookahead -----------------
-    uint32_t m2[28];  // samples 32t .. 32t + 55, two per word, low half first
-#pragma unroll
-    for (int k = 0; k < 7; ++k) {
-        const uint4 r = mag4[sw_mag(4 * t + k)];
-        m2[4 * k] = r.x;
-        m2[4 * k + 1] = r.y;
-        m2[4 * k + 2] = r.z;
-        m2[4 * k + 3] = r.w;
-    }
-    auto m = [&](int s) {
-        return static_cast<int32_t>((s & 1) ? m2[s >> 1] >> 16 : m2[s >> 1] & 0xffffu);
-    };
-
+    uint32_t m2[28];
+    load_thread(mag4, t, m2);
     uint32_t cw[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};  // correlation bytes
-    uint32_t pl[5] = {0u, 0u, 0u, 0u, 0u};              // sign-plane words
-    uint32_t hi = 0u, lo = 0u;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-        int32_t p[kHalo];
-#pragma unroll
-        for (int d = 0; d < kHalo; ++d) p[d] = m(j + d);
-        // preamble pre-check + 3 correlations (demod_2400.c:311-378)
-        const bool pre = (p[1] > p[7]) & (p[12] > p[14]) & (p[12] > p[15]);
-        const int32_t ref = ((p[5] + p[8] + p[16] + p[17] + p[18]) * thr) >> 5;
-        const int32_t d23 = p[2] - p[3];
-        const int32_t s14 = p[1] + p[4];
-        const int32_t d1011 = p[10] - p[11];
-        const int32_t common = s14 - d23 + p[9] + p[12];
-        const bool ca = (common - d1011) >= ref;
-        const bool cb = (common + d1011) >= ref;
-        const bool cc = (s14 + 2 * d23 + d1011 + p[12]) >= ref;
-        const bool cand = pre & (ca | cb | cc);
+    uint32_t pl[5];
+    uint32_t hi, lo;
+    scan_samples(m2, thr, pl, hi, lo, [&](int j, bool ca, bool cb, bool cc, bool cand) {
         cw[j >> 2] |= static_cast<uint32_t>(ca | (cb << 1) | (cc << 2) | (cand << 3)) << (8 * (j & 3));
-        // slicer sign planes (demod_2400.c:74-93): x > 0 is the sign bit of
-        // -x (|x| < 2^21), so no predicate is packed into the plane word
-        const int32_t s0 = p[0], s1 = p[1], s2 = p[2], s3 = p[3];
-        pl[0] |= positive(18 * s0 - 15 * s1 - 3 * s2) << j;
-        pl[1] |= positive(14 * s0 - 5 * s1 - 9 * s2) << j;
-        pl[2] |= positive(16 * s0 + 5 * s1 - 20 * s2) << j;
-        pl[3] |= positive(7 * s0 + 11 * s1 - 18 * s2) << j;
-        pl[4] |= positive(4 * s0 + 15 * s1 - 20 * s2 + s3) << j;
-        const uint32_t sqm = static_cast<uint32_t>(s0) * static_cast<uint32_t>(s0);
-        hi += sqm >> 16;
-        lo += sqm & 0xffffu;
-    }
+    });
 
     const int64_t nw = n >> 5;
 #pragma unroll
@@ -275,23 +364,7 @@ __global__ void __launch_bounds__(kThreads, 3) dense_tile(
 
     // ---- the tile's offset: publish, look back, publish ------------------------
     if (warp == 0) {
-        uint2 ex = make_uint2(0u, 0u);
-        if (tile == 0) {
-            if (lane == 0) {
-                __stcg(prefix, make_uint2(th, tl));
-                st_release(flags, kPrefix);
-            }
-        } else {
-            if (lane == 0) {
-                __stcg(agg + tile, make_uint2(th, tl));
-                st_release(flags + tile, kAggregate);
-            }
-            ex = look_back(flags, agg, prefix, tile);
-            if (lane == 0) {
-                __stcg(prefix + tile, make_uint2(ex.x + th, ex.y + tl));
-                st_release(flags + tile, kPrefix);
-            }
-        }
+        const uint2 ex = publish_and_look_back(flags, agg, prefix, tile, th, tl);
         if (lane == 0) {
             ex_sh[0] = ex.x;
             ex_sh[1] = ex.y;
@@ -302,48 +375,25 @@ __global__ void __launch_bounds__(kThreads, 3) dense_tile(
     ol += ex_sh[1];
 
     // ---- the two prefix sums, one staging round each ---------------------------
-    auto stage = [&](uint32_t run, bool high) {
-#pragma unroll
-        for (int k = 0; k < kPer / 4; ++k) {
-            uint32_t o[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const uint32_t s = static_cast<uint32_t>(m(4 * k + i));
-                run += high ? (s * s) >> 16 : (s * s) & 0xffffu;
-                o[i] = run;
-            }
-            out4[sw_out(8 * t + k)] = make_uint4(o[0], o[1], o[2], o[3]);
-        }
-    };
-    auto flush = [&](int32_t* dst) {
-        uint4* d4 = reinterpret_cast<uint4*>(dst + base);
-#pragma unroll
-        for (int i = 0; i < kOutChunks / kThreads; ++i) {
-            const int c = t + i * kThreads;
-            d4[c] = out4[sw_out(c)];
-        }
-    };
-    stage(oh, true);
-    __syncthreads();
-    flush(cs_hi);
-    __syncthreads();
-    stage(ol, false);
-    __syncthreads();
-    flush(cs_lo);
+    store_prefix_sums(out4, m2, oh, ol, cs_hi + base, cs_lo + base);
 }
 
-// The memset of the ticket and the flags, then the kernel, on one stream.
+// Once per library, on its device: dense_tile's shared memory above 48 KB.
+template <class Loader>
+cudaError_t prepare() {
+    return cudaFuncSetAttribute(dense_tile<Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kSharedBytes));
+}
+
+// The memset of the ticket and the flags, then the kernel, on one stream
+// (after prepare<Loader>).
 // Returns the first CUDA error.
 template <class Loader>
 int launch(const void* in, long long n, int threshold, void* corr, void* pwords,
            void* cs_hi, void* cs_lo, void* scratch, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long ntiles = n / kTile;
-    cudaError_t e = cudaFuncSetAttribute(dense_tile<Loader>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSharedBytes));
-    if (e == cudaSuccess)
-        e = cudaMemsetAsync(scratch, 0, sizeof(uint32_t) * (kHead + ntiles), s);
+    const cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(uint32_t) * (kHead + ntiles), s);
     if (e != cudaSuccess) return static_cast<int>(e);
     dense_tile<Loader><<<static_cast<unsigned>(ntiles), kThreads, kSharedBytes, s>>>(
         static_cast<const uint16_t*>(in), static_cast<int64_t>(n), threshold,

@@ -10,6 +10,10 @@
 
 #include "dense_scan.cuh"
 
+extern "C" int rtpu_init(int* device) {
+    return rtpu::init(device, [](int) { return dense::prepare<dense::Uc8Loader>(); });
+}
+
 // The fi^2 table, float32[256]; once per process, before the first launch.
 extern "C" int rtpu_dense_set_table(const void* sq) { return dense::set_sq_table(sq); }
 

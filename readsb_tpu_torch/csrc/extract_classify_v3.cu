@@ -13,24 +13,22 @@
 //                          per-phase flag word (classify.cuh), 88:128 zero
 //
 // Bound on the H100: memory, 1028 B per candidate as extract_syndromes;
-// the tables are read from cache.  The TPU kernel is its v1 extraction
-// plus a classification block, and so is this one: extract.cuh's
-// cand_rows (one lane per candidate, all five phases) with classify::Post
-// after each phase's slice.  There a lane already holds the phase's
-// syn112, syn56 and first message bytes in registers, so the flag word
-// costs three binary searches (<= 13 steps each at nfix = 2) and no
-// further memory traffic of its own.
+// the tables are read from shared memory or cache.  The TPU kernel is its
+// v1 extraction plus a classification block, and so is this one:
+// extract.cuh's cand_rows (one lane per candidate, all five phases) with
+// classify::Post after the five slices.  There a lane already holds the
+// phases' syn112, syn56 and first message bytes in registers, so the flag
+// words cost three lock-step searches of five keys (<= 12 steps each at
+// nfix = 2) and no memory traffic of their own.
 
 #include "classify.cuh"
-#include "extract.cuh"
 
-extern "C" const char* rtpu_cuda_error_string(int code) {
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
+extern "C" int rtpu_init(int* device) {
+    return rtpu::init(device, extract::prepare<classify::Post>);
 }
 
-extern "C" int rtpu_extract_set_tables(const void* tap, const void* syn112,
-                                       const void* syn56, const void* syn_bytes) {
-    return extract::set_tables(tap, syn112, syn56, syn_bytes);
+extern "C" int rtpu_extract_set_tables(const void* syn_bytes) {
+    return extract::set_tables(syn_bytes);
 }
 
 extern "C" int extract_classify_v3(const void* rows, const void* offsets, long long k,
@@ -38,11 +36,6 @@ extern "C" int extract_classify_v3(const void* rows, const void* offsets, long l
                                    const void* t112, int n112,
                                    const void* t56, int n56, const void* dfd,
                                    void* out, void* stream) {
-    const classify::Post post{{
-        static_cast<const int32_t*>(known), n_known,
-        static_cast<const int32_t*>(t112), n112,
-        static_cast<const int32_t*>(t56), n56,
-        static_cast<const int32_t*>(dfd),
-    }};
-    return extract::launch_rows(rows, offsets, k, out, post, stream);
+    return classify::launch(rows, offsets, k, known, n_known, t112, n112, t56, n56, dfd, out,
+                            stream);
 }

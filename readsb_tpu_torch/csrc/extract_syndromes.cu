@@ -20,13 +20,12 @@
 
 #include "extract.cuh"
 
-extern "C" const char* rtpu_cuda_error_string(int code) {
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
+extern "C" int rtpu_init(int* device) {
+    return rtpu::init(device, extract::prepare<extract::NoPost>);
 }
 
-extern "C" int rtpu_extract_set_tables(const void* tap, const void* syn112,
-                                       const void* syn56, const void* syn_bytes) {
-    return extract::set_tables(tap, syn112, syn56, syn_bytes);
+extern "C" int rtpu_extract_set_tables(const void* syn_bytes) {
+    return extract::set_tables(syn_bytes);
 }
 
 extern "C" int extract_syndromes(const void* rows, const void* offsets, long long k,

@@ -11,6 +11,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "runtime.cuh"
+
 // fi^2 with fi = f32((i - 127.5) / 127.5), as convert.c:45-50 builds it
 __device__ inline void load_sq_table(float* sq) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x) {
@@ -25,9 +27,4 @@ __device__ __forceinline__ uint32_t uc8_mag(uint32_t w, const float* sq) {
     s = fminf(s, 1.0f);
     float m = __fadd_rn(__fmul_rn(__fsqrt_rn(s), 65535.0f), 0.5f);
     return static_cast<uint32_t>(m);  // truncation; m in [0.5, 65535.5]
-}
-
-// The text of a CUDA error code, for the Python wrapper's exception.
-extern "C" const char* rtpu_cuda_error_string(int code) {
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,16 +1,18 @@
-"""Fused dense scan -> in-tile compaction -> extraction, one kernel per tile.
+"""Fused dense scan -> in-tile compaction -> extraction, per tile.
 
 readsb_tpu.ops.fused in PyTorch + CUDA.  The staged route passes every
 stage's result through device memory (correlation bits and plane words
 written by the dense scan, read by the compaction and the win-row build,
 candidate rows gathered back for the extraction) and takes some 300
-launches per dispatch.  This kernel keeps one 65536-sample tile in shared
-memory end to end:
+launches per dispatch.  This kernel (csrc/fused_demod.cu: a memset, then
+one launch of a cluster of eight blocks per 65536-sample tile) keeps a
+tile in shared memory end to end:
 
   1. dense preamble / correlations and slicer sign planes over the tile
-     and a 1024-sample halo, so that every candidate window stays in-tile
+     and the samples past it that its windows reach
   2. in-tile compaction of the candidates to `cap` ascending offsets
-  3. extraction for those `cap` rows straight from the tile's plane words
+  3. extraction of the live rows straight from the tile's plane words;
+     the other rows are copies of the tile's offset-0 row
 
 Per-tile outputs: comb (cap, 128) in the extraction's layout, global
 offsets (cap,) + live mask, per-tile meta (count, most per 256-sample
@@ -154,6 +156,9 @@ def fused_demod_tiles(
             scan_limit=scan_limit,
         )
     buf = buf.contiguous()
+    if buf.data_ptr() % 16:  # the kernel reads 16-byte chunks
+        buf = buf.clone()
+    lib = kernels._launcher("fused_demod", buf)
     dev = buf.device
     n = buf.shape[0]
     rows = (n // TILE) * cap
@@ -163,8 +168,7 @@ def fused_demod_tiles(
     meta = torch.empty((n // TILE, 3), dtype=torch.int32, device=dev)
     cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
     cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * (n // kernels.DENSE_BLOCK), dtype=torch.int32, device=dev)
-    lib = kernels._lib("fused_demod")
+    scratch = torch.empty(kernels.dense_scratch_words(n), dtype=torch.int32, device=dev)
     rc = lib.fused_demod(
         buf.data_ptr(), n, int(threshold), int(cap), int(L_ROW),
         int(seg_stride or 0), int(seg_valid or 0), limit,

@@ -13,18 +13,21 @@ the kernel launches, so a run can show that the main path used them.
   mag_uc8            raw UC8 words -> uint16 magnitudes, equal to the LUT
   dense_scan         uint16 magnitudes -> the outputs of dense_scan_uc8
   extract_classify_v3  extract_syndromes plus the score gate's per-phase
-                     flag word (lane per candidate, warp per phase)
-  extract_classify   the same function by the plan-order datapath (warp
-                     per candidate)
+                     flag word
+  extract_classify   the same function, the TPU's plan-order datapath
 
 The output contracts are those of readsb_tpu.ops.pallas_kernels
 dense_scan_uc8_pallas, extract_syndromes_pallas, mag_uc8_pallas,
 dense_scan_pallas, extract_classify_v3_pallas and extract_classify_pallas.
-The two dense scans share one kernel (csrc/dense_scan.cuh), kernels 2 and
-5 one block kernel (csrc/extract.cuh, with the compile-time tap schedule of
-csrc/extract_taps.cuh) and the classifiers one function
+The two dense scans share one kernel (csrc/dense_scan.cuh), kernels 2, 5
+and 6 one block kernel (csrc/extract.cuh, with the compile-time tap
+schedule of csrc/extract_taps.cuh), and 5 and 6 the classifier
 (csrc/classify.cuh).  The seventh kernel, the fused per-tile demodulator,
 has its wrapper in ops/fused.py and is built and loaded here.
+
+A library belongs to the device that is current when it is loaded: its
+tables are copied there and its launch attributes set there, once.  A
+wrapper given a tensor on another device raises ValueError.
 """
 
 from __future__ import annotations
@@ -54,10 +57,10 @@ NVCC_FLAGS = (
 )
 TILE = 65536  # dense-scan length granule (the Pallas kernel's tile)
 DENSE_TILE = 8192  # samples per CUDA block of the dense scan (csrc/dense_scan.cuh)
-DENSE_BLOCK = 1024  # samples per CUDA block of the fused kernel's prefix passes
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_devices: dict[str, int] = {}  # the device index each library was loaded on
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +133,7 @@ _ARGTYPES = {
     "mag_uc8": [_P, _LL, _P, _P],
     "extract_syndromes": [_P, _P, _LL, _P, _P],
     "extract_classify_v3": [*_CLASSIFY_ARGS, _P, _P],
-    "extract_classify": [*_CLASSIFY_ARGS, _P, _P, _P],
+    "extract_classify": [*_CLASSIFY_ARGS, _P, _P],
     "fused_demod": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 # libraries built on csrc/extract.cuh hold its tables
@@ -147,19 +150,41 @@ def _lib(name: str) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = _ARGTYPES[name]
+            # the current device: tables, attributes and the SM count are its
+            lib.rtpu_init.restype = ctypes.c_int
+            lib.rtpu_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            device = ctypes.c_int(-1)
+            _check(lib, lib.rtpu_init(ctypes.byref(device)), "rtpu_init")
             if name in _EXTRACT_LIBS:
                 lib.rtpu_extract_set_tables.restype = ctypes.c_int
-                lib.rtpu_extract_set_tables.argtypes = [_P] * 4
-                tables = (*extract_tables_np(), syndrome_bytes_np())
-                _check(lib, lib.rtpu_extract_set_tables(*(t.ctypes.data for t in tables)),
+                lib.rtpu_extract_set_tables.argtypes = [_P]
+                _check(lib, lib.rtpu_extract_set_tables(syndrome_bytes_np().ctypes.data),
                        "rtpu_extract_set_tables")
             if name == "dense_scan_uc8":
                 lib.rtpu_dense_set_table.restype = ctypes.c_int
                 lib.rtpu_dense_set_table.argtypes = [_P]
                 _check(lib, lib.rtpu_dense_set_table(sq_table_np().ctypes.data),
                        "rtpu_dense_set_table")
+            _devices[name] = device.value
             _libs[name] = lib
         return _libs[name]
+
+
+def check_device(loaded_on: int, device: torch.device, what: str) -> None:
+    """Raise ValueError unless `device` is the CUDA device a library was
+    loaded on: its tables and launch attributes exist there only."""
+    if device.type != "cuda" or device.index != loaded_on:
+        raise ValueError(
+            f"{what}: the tensor is on {device}, but the kernel library was loaded on "
+            f"cuda:{loaded_on}; the port uses one device per process (ROADMAP Queue 1 item 11)"
+        )
+
+
+def _launcher(name: str, t: torch.Tensor) -> ctypes.CDLL:
+    """The library `name`, loaded at first use, for a launch on t's device."""
+    lib = _lib(name)
+    check_device(_devices[name], t.device, name)
+    return lib
 
 
 def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -285,7 +310,7 @@ def _launch_dense(name: str, samples: torch.Tensor, threshold: int):
     cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
     cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = torch.empty(dense_scratch_words(n), dtype=torch.int32, device=dev)
-    lib = _lib(name)
+    lib = _launcher(name, samples)
     rc = getattr(lib, name)(
         samples.data_ptr(), n, int(threshold),
         corr.data_ptr(), pwords.data_ptr(), cs_hi.data_ptr(), cs_lo.data_ptr(),
@@ -367,7 +392,7 @@ def mag_uc8(words: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.uint16, device=words.device)
     if n == 0:
         return out
-    lib = _lib("mag_uc8")
+    lib = _launcher("mag_uc8", words)
     rc = lib.mag_uc8(words.data_ptr(), n, out.data_ptr(), _stream(words))
     _check(lib, rc, "mag_uc8")
     mag_uc8.launches += 1
@@ -390,8 +415,10 @@ def extract_tables_np() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(tap int32[560], syn112 uint32[112], syn56 uint32[56]).
 
     tap[p * 112 + b] = (kid << 9) | aoff for slicer bit b of phase p
-    (ops/demod.lattice_tables); syn* are the per-bit CRC-24 syndromes,
-    the rows of crc.syndrome_matrix(112) and (56) packed MSB first.
+    (ops/demod.lattice_tables), written out as csrc/extract_taps.cuh;
+    syn* are the per-bit CRC-24 syndromes, the rows of
+    crc.syndrome_matrix(112) and (56) packed MSB first, from which
+    syndrome_bytes_np builds the kernels' byte table.
     """
     from .demod import lattice_tables
 
@@ -519,7 +546,7 @@ def extract_syndromes(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor
     out = torch.empty((k, 128), dtype=torch.int32, device=rows.device)
     if k == 0:
         return out
-    lib = _lib("extract_syndromes")
+    lib = _launcher("extract_syndromes", rows)
     rc = lib.extract_syndromes(
         rows.data_ptr(), offsets.data_ptr(), k, out.data_ptr(), _stream(rows)
     )
@@ -541,9 +568,10 @@ PLAN_WORDS = 576  # the 560 emission lanes padded to 18 rounds of 32
 @functools.lru_cache(maxsize=None)
 def extract_plan_words_np() -> np.ndarray:
     """int32[576]: demod._extract_plan's 560 emission lanes in plan order,
-    one word each for the extract_classify kernel: aligned window word
-    (plane * 11 + j, 6 bits) | bit shift << 6 | message bit << 11 |
-    phase << 18.  The 16 padding words carry phase 7."""
+    one word each: aligned window word (plane * 11 + j, 6 bits) | bit
+    shift << 6 | message bit << 11 | phase << 18.  The 16 padding words
+    carry phase 7.  The plan picks the taps of csrc/extract_taps.cuh in
+    another order, which is why extract_classify's kernel is cand_rows."""
     from .demod import extract_plan_lanes
 
     word, shift, col = extract_plan_lanes()
@@ -554,13 +582,11 @@ def extract_plan_words_np() -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(nfix: int, fix_df: bool, device: torch.device):
-    """(t112, t56, dfd, plan) of gate.gate_tables_np and
-    extract_plan_words_np as int32 tensors on `device`, made once per
-    (nfix, fix_df) pair and device."""
+    """(t112, t56, dfd) of gate.gate_tables_np as int32 tensors on
+    `device`, made once per (nfix, fix_df) pair and device."""
     from .gate import gate_tables_np
 
-    arrays = (*gate_tables_np(nfix, fix_df), extract_plan_words_np())
-    return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
+    return tuple(torch.from_numpy(a.copy()).to(device) for a in gate_tables_np(nfix, fix_df))
 
 
 def extract_classify_v3_plain(rows, offsets, known_tbl, *, nfix: int = 1, fix_df: bool = True):
@@ -616,16 +642,14 @@ def _launch_classify(wrapper, rows, offsets, known_tbl, nfix: int, fix_df: bool)
     out = torch.empty((k, 128), dtype=torch.int32, device=rows.device)
     if k == 0:
         return out
-    t112, t56, dfd, plan = _device_tables(int(nfix), bool(fix_df), rows.device)
-    args = [
+    lib = _launcher(name, rows)
+    t112, t56, dfd = _device_tables(int(nfix), bool(fix_df), rows.device)
+    rc = getattr(lib, name)(
         rows.data_ptr(), offsets.data_ptr(), k,
         known_tbl.data_ptr(), known_tbl.shape[0],
         t112.data_ptr(), t112.shape[0], t56.data_ptr(), t56.shape[0], dfd.data_ptr(),
-    ]
-    if name == "extract_classify":
-        args.append(plan.data_ptr())
-    lib = _lib(name)
-    rc = getattr(lib, name)(*args, out.data_ptr(), _stream(rows))
+        out.data_ptr(), _stream(rows),
+    )
     _check(lib, rc, name)
     wrapper.launches += 1
     return out
@@ -656,11 +680,12 @@ extract_classify_v3.launches = 0
 
 
 def extract_classify(rows, offsets, known_tbl, *, nfix: int = 1, fix_df: bool = True):
-    """The function of extract_classify_v3, bit for bit, by the plan-order
-    datapath: on the card one warp per candidate walks the 560 emission
-    lanes of demod._extract_plan (csrc/extract_classify.cu).  The pipeline
-    calls extract_classify_v3; this one is held by the tests and timed
-    beside it."""
+    """The function of extract_classify_v3, bit for bit; readsb_tpu
+    computes it by the plan-order datapath (demod._extract_plan), which
+    picks the same 560 taps in another order, so on the card it is the same
+    lane-per-candidate block kernel (csrc/extract_classify.cu).  The
+    pipeline calls extract_classify_v3; this one is held by the tests and
+    timed beside it."""
     _check_rows(rows, offsets)
     _check_known(known_tbl, rows)
     if _on_cpu(rows):

@@ -11,6 +11,8 @@ same constant.  Tolerance 0 everywhere.
 """
 
 import functools
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -105,6 +107,23 @@ def test_plan_words_decode_to_the_plan():
     comb = jax_demod._combined_matrix()
     for e in range(560):
         np.testing.assert_array_equal(m1p[e, phase[e] * 62 : phase[e] * 62 + 62], comb[bit[e]])
+
+
+def test_plan_picks_the_taps_of_the_compile_time_schedule():
+    """The plan-order datapath and cand_rows pick the same 560 (phase, bit)
+    -> (plane, sample) taps: the packed plan, decoded, equals
+    csrc/extract_taps.cuh read as text, as a map per (phase, bit)."""
+    text = (pathlib.Path(kernels.CSRC) / "extract_taps.cuh").read_text()
+    body = text[text.index("kTaps[5][112] = {"):]
+    body = body[body.index("{"):body.index("};")]
+    header = np.array([int(v) for v in re.findall(r"\d+", body)]).reshape(5, 112)
+    words = kernels.extract_plan_words_np()[:560].astype(np.int64)
+    w, sh = words & 63, (words >> 6) & 31
+    bit, phase = (words >> 11) & 127, words >> 18
+    taps = ((w // 11) << 9) | (32 * (w % 11) + sh)
+    plan = {(int(p), int(b)): int(t) for p, b, t in zip(phase, bit, taps)}
+    assert len(plan) == 560
+    assert plan == {(p, b): int(header[p, b]) for p in range(5) for b in range(112)}
 
 
 @pytest.mark.parametrize("nfix,fix_df", PAIRS)

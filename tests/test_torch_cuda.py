@@ -221,7 +221,7 @@ def test_extract_kernel_equals_plain_on_capture_rows(dev, capture_rows):
 
 @pytest.mark.parametrize("name", ["extract_classify_v3", "extract_classify"])
 @pytest.mark.parametrize("nfix,fix_df", [(0, False), (1, True), (2, True)])
-@pytest.mark.parametrize("t", [128, 2048])
+@pytest.mark.parametrize("t", [128, 2048, 4096])
 def test_classify_kernels_equal_plain_on_a_capture(dev, capture_rows, name, nfix, fix_df, t):
     rows, offsets, _ = capture_rows
     tbl = _known_table([0x400000 + a * 0x1111 for a in range(6)] + list(range(7, 9000, 3)), t)
@@ -322,3 +322,101 @@ def test_routes_on_the_card_equal_the_staged_cpu_run(dev, fmt, route):
         setattr(module, route, False)
     assert wrapper.launches > before
     assert card == cpu and card[2] is False and sum(map(len, card[0])) > 10
+
+
+@pytest.mark.parametrize("name", ["extract_classify_v3", "extract_classify"])
+@pytest.mark.parametrize("nfix,fix_df", [(0, False), (1, True), (2, True)])
+@pytest.mark.parametrize("t", [128, 4096])
+def test_classify_kernels_at_every_table_size_on_ragged_rows(dev, name, nfix, fix_df, t):
+    """K = 4099 (no multiple of 32) random rows: every nfix, a known table
+    small enough for shared memory (128) and one that is not (4096)."""
+    k = 4099
+    rng = np.random.default_rng(nfix * 10 + t)
+    rows = torch.from_numpy(rng.integers(-(2**31), 2**31, (k, 128), dtype=np.int64).astype(np.int32))
+    offs = torch.from_numpy(rng.integers(0, 2**24, k, dtype=np.int64).astype(np.int32))
+    blank = torch.full((128,), gate.TBL_SENTINEL, dtype=torch.int32)
+    first = kernels.extract_classify_v3_plain(rows, offs, blank, nfix=nfix, fix_df=fix_df)
+    tbl = _known_table(first[:, 0:10].reshape(-1)[::5].tolist(), t)
+    want = getattr(kernels, name + "_plain")(rows, offs, tbl, nfix=nfix, fix_df=fix_df)
+    assert (want[:, 83:88] & 4).any()
+    fn = getattr(kernels, name)
+    before = fn.launches
+    got = fn(rows.to(dev), offs.to(dev), tbl.to(dev), nfix=nfix, fix_df=fix_df)
+    assert fn.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_wrappers_accept_the_device_their_library_was_loaded_on(dev):
+    """A cuda:0 tensor launches; the library records device 0."""
+    words = torch.full((65536,), 0x8080, dtype=torch.uint16, device=dev)
+    before = kernels.mag_uc8.launches
+    kernels.mag_uc8(words)
+    assert kernels.mag_uc8.launches == before + 1
+    assert kernels._devices["mag_uc8"] == torch.cuda.current_device() == words.device.index
+    kernels.check_device(words.device.index, words.device, "mag_uc8")
+
+
+def _bursty_noise(tiles: int, halo: bool, seed: int) -> torch.Tensor:
+    """Uniform noise in 512-sample bursts over a constant floor, with tile t
+    holding bursts in a share (2%, 100%, 0, 20%)[t % 4] of its segments:
+    from tiles with no candidate (every row dead) to tiles over any cap
+    here (about 1,350 candidates)."""
+    rng = np.random.default_rng(seed)
+    n = tiles * fused.TILE + (fused.HALO if halo else 0)
+    mag = np.full(n, 900, np.uint16)
+    share = np.array([0.02, 1.0, 0.0, 0.2])[(np.arange(n // 512) * 512 // fused.TILE) % 4]
+    noisy = np.repeat(rng.random(n // 512) < share, 512)
+    mag[noisy] = rng.integers(0, 4000, int(noisy.sum()), dtype=np.int64).astype(np.uint16)
+    return torch.from_numpy(mag)
+
+
+@pytest.mark.parametrize("tiles,cap", [(1, 1), (1, 777), (3, 1), (3, 777), (3, 1016),
+                                       (129, 1), (129, 777), (129, 1016)])
+@pytest.mark.parametrize("halo", [False, True])
+def test_fused_kernel_equals_plain_on_bursty_noise(dev, tiles, cap, halo):
+    """T = 1, 3 and 129 tiles, cap = 1, 777 and 1016, with and without the
+    last tile's halo (windows cross every tile's end)."""
+    mag = _bursty_noise(tiles, halo, tiles + cap).to(dev)
+    before = fused.fused_demod_tiles.launches
+    got = fused.fused_demod_tiles(mag, 58, cap=cap)
+    assert fused.fused_demod_tiles.launches == before + 1
+    want = fused.fused_demod_tiles_plain(mag, 58, cap=cap)
+    count = want[3][:, 0]
+    assert int(count[0]) > 0 and (tiles == 1 or int(count.max()) > cap)
+    assert tiles == 1 or int(count.min()) == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_fused_kernel_equals_plain_across_the_cluster_seams(dev, halo):
+    """Live candidates within a window's reach (352 samples) of each of the
+    seven seams between a tile's 8192-sample blocks, and of the tile's end:
+    their windows read the next block's planes.  Noise everywhere; cap =
+    4096 keeps every candidate."""
+    tiles = 2
+    rng = np.random.default_rng(5)
+    n = tiles * fused.TILE + (fused.HALO if halo else 0)
+    mag = torch.from_numpy(rng.integers(0, 4000, n, dtype=np.int64).astype(np.uint16)).to(dev)
+    got = fused.fused_demod_tiles(mag, 58, cap=4096)
+    want = fused.fused_demod_tiles_plain(mag, 58, cap=4096)
+    assert int(want[3][:, 0].max()) < 4096
+    offs = want[1][want[2]].cpu().numpy()
+    for seam in range(8192, tiles * fused.TILE + 1, 8192):
+        assert ((offs >= seam - 352) & (offs < seam)).any(), seam
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_fused_kernel_equals_plain_with_a_channel_layout(dev, halo):
+    """seg_stride / seg_valid cut candidates per channel; scan_limit ends
+    the scan inside the last tile."""
+    tiles = 9
+    mag = _bursty_noise(tiles, halo, 11).to(dev)
+    kw = dict(cap=1016, seg_stride=131584, seg_valid=131072, scan_limit=tiles * fused.TILE - 70000)
+    got = fused.fused_demod_tiles(mag, 58, **kw)
+    want = fused.fused_demod_tiles_plain(mag, 58, **kw)
+    assert want[2].any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -107,7 +107,8 @@ def test_df_delta_syndromes_equal():
 
 
 def test_kernel_tables_are_the_lattice_and_syndromes():
-    """The CUDA kernel's __constant__ tables decode back to JAX's tables."""
+    """The tap table (written out as csrc/extract_taps.cuh) and the per-bit
+    syndromes (the byte table's source) decode back to JAX's tables."""
     tap, s112, s56 = kernels.extract_tables_np()
     aoff, kid = jax_demod.lattice_tables()
     np.testing.assert_array_equal(tap.reshape(5, 112) & 511, aoff)

@@ -65,6 +65,30 @@ def _both(mag, **kw):
     return got, [np.asarray(w) for w in want]
 
 
+def _offset0_rows(mag: np.ndarray) -> torch.Tensor:
+    """int32[T, 128]: per tile the staged route's extraction (the port's
+    plain dense scan, win rows and extract_syndromes) at the tile's first
+    sample; magnitudes past the buffer are 0."""
+    ntiles = len(mag) // TILE
+    m = torch.zeros(ntiles * TILE + fused.HALO, dtype=torch.int32)
+    m[: len(mag)] = torch.from_numpy(mag.astype(np.int32))
+    corrbits, pwords, _, _ = kernels.dense_from_mag(m, 58, tail=0)
+    win, _ = demod.win_rows(corrbits, pwords, ntiles * TILE)
+    starts = torch.arange(ntiles, dtype=torch.int64) * TILE
+    return kernels.extract_syndromes_plain(win[starts // 256], starts.to(torch.int32))
+
+
+def _dead_rows_are_offset0_rows(comb, live, offset0, cap: int) -> int:
+    """Every row that is not live equals its tile's offset-0 row; returns
+    how many there are."""
+    comb = np.asarray(comb).reshape(len(offset0), cap, 128)
+    dead = ~np.asarray(live).astype(bool).reshape(len(offset0), cap)
+    for t in range(len(offset0)):
+        np.testing.assert_array_equal(comb[t][dead[t]], np.broadcast_to(
+            offset0[t].numpy(), (int(dead[t].sum()), 128)), err_msg=f"tile {t}")
+    return int(dead.sum())
+
+
 def test_constants_equal():
     assert (fused.TILE, fused.L_ROW) == (jax_fused.TILE, jax_fused.L_ROW)
     assert fused.HALO == jax_fused.HALO_ROWS * jax_fused.LANES
@@ -85,6 +109,9 @@ def test_fused_plain_equals_pallas(capture, kw):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)  # every row
     assert got[2].dtype == torch.bool and got[0].dtype == torch.int32
     assert (np.diff(got[1].numpy()) >= 0).all()
+    # readsb_tpu's dead rows: each tile's offset-0 row, what the kernel
+    # extracts once per tile and copies
+    assert _dead_rows_are_offset0_rows(want[0], want[2], _offset0_rows(mag), kw["cap"]) > 0
 
 
 def test_fused_rows_equal_the_staged_extraction(capture):
@@ -132,6 +159,23 @@ def test_fused_row_and_tile_overflow_keep_meta(capture):
         fused.L_ROW = 16
     assert torch.equal(rows1[3], full[3]) and int(full[3][:, 2].max()) > 1
     assert 0 < int(rows1[2].sum()) < int(full[2].sum())
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_fused_plain_dead_rows_are_the_offset0_row_when_it_overflows(halo):
+    """Noise, cap 777 and L_ROW 4 (the card test's overflow case): rows past
+    the tile's candidates and crowded rows' candidates are dead, and each
+    is its tile's offset-0 row."""
+    rng = np.random.default_rng(9)
+    n = 3 * TILE + (fused.HALO if halo else 0)
+    mag = rng.integers(0, 4000, n, dtype=np.int64).astype(np.uint16)
+    fused.L_ROW = 4
+    try:
+        comb, _, live, meta, _, _ = fused.fused_demod_tiles(torch.from_numpy(mag), 58, cap=777)
+    finally:
+        fused.L_ROW = 16
+    assert int(meta[:, 0].min()) > 777 and live.any() and not live.all()
+    assert _dead_rows_are_offset0_rows(comb, live, _offset0_rows(mag), 777) > 0
 
 
 @pytest.mark.parametrize(

@@ -209,6 +209,16 @@ def test_new_wrappers_take_the_plain_versions_uncounted_on_the_cpu():
     assert [w.launches for w in wrappers] == before
 
 
+@pytest.mark.parametrize("recorded,device", [(0, torch.device("cuda", 1)), (1, torch.device("cuda", 0)),
+                                             (0, torch.device("cpu"))])
+def test_a_library_refuses_a_tensor_on_another_device(recorded, device):
+    """A library's tables live on the device it was loaded on: any other
+    device is refused, not launched on (no card needed)."""
+    with pytest.raises(ValueError, match="one device per process"):
+        kernels.check_device(recorded, device, "dense_scan")
+    kernels.check_device(device.index or 0, torch.device("cuda", device.index or 0), "dense_scan")
+
+
 def test_wrap_and_pack_helpers():
     x = torch.tensor([0, (1 << 31), (1 << 32) + 5, -1], dtype=torch.int64)
     assert kernels.wrap_i32(x).tolist() == [0, -(1 << 31), 5, -1]
