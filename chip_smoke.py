@@ -18,6 +18,16 @@ just before and read just after:
                    are one cluster of eight blocks per tile (fused_demod), through
                    MultiDemodulator(64) and Demodulator(blocks_per_batch=4)
 
+and then drives the app (readsb_tpu_torch.app.main, the user's path from
+IQ files to aircraft.json) on the card:
+
+  app              App.run_ifile over 64 uc8 receivers (run_ifile_multi),
+                   one sc16 file, and one uc8 file under --modeac, each
+                   held against the port's CPU app run of the same files;
+                   the command line over the 64 files; and a timed run of
+                   64 receivers x 2.0 s with 104 distinct aircraft, again
+                   under torch.profiler
+
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
@@ -31,22 +41,37 @@ of JAX.
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
+import contextlib
+import io
 import json
+import multiprocessing
 import os
 import re
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from readsb_tpu_torch import BUILD_DIR, pipeline
+from readsb_tpu_torch.app import main as app_main
 from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT
+from readsb_tpu_torch.decode.mode_ac import modec_to_modea
+from readsb_tpu_torch.io import json_out
 from readsb_tpu_torch.ops import demod as demod_ops
 from readsb_tpu_torch.ops import fused, kernels
 from readsb_tpu_torch.ops.convert import mag_uc8_words, uc8_lut_np
-from readsb_tpu_torch.synth import build_standard_capture, quantize_sc16, quantize_uc8
+from readsb_tpu_torch.synth import (
+    build_standard_capture,
+    build_traffic_capture,
+    quantize_sc16,
+    quantize_uc8,
+)
 
 N_CHAN = 64  # the benchmark width: 64 channels x 131072 UC8 samples per dispatch
 DISPATCHES = 2  # so the carried overlap crosses a superblock
@@ -76,6 +101,20 @@ WRAPPERS = {
     "extract_classify_v3": kernels.extract_classify_v3,
     "extract_classify": kernels.extract_classify,
     "fused_demod": fused.fused_demod_tiles,
+}
+# the app phase: 64 receivers in 8 groups; the receivers of a group see
+# the same 13 aircraft (one address base), so 104 distinct aircraft
+APP_GROUPS = 8
+APP_AIRCRAFT = 13
+APP_PARITY_S = 0.6  # the captures held against the CPU app run
+APP_TIMED_S = 2.0  # the timed run's captures
+APP_EPOCH_MS = 1_760_000_000_000
+APP_WALL_CLOCK = ("cpu", "start", "end")  # stats.json fields read off the host's clock
+# the kernels each app route launches
+APP_ROUTES = {
+    "multi": ("dense_scan_uc8", "extract_syndromes"),
+    "sc16": ("dense_scan", "extract_syndromes"),
+    "modeac": ("mag_uc8", "dense_scan", "extract_syndromes"),
 }
 
 DEV = torch.device("cuda")
@@ -185,7 +224,7 @@ def max_abs_err(xs, ys) -> int:
 
 
 def frame_key(frames):
-    return [(f.msg.hex(), f.timestamp) for f in frames]
+    return [(f.msg.hex(), f.timestamp, f.phase, f.score, f.signal_power) for f in frames]
 
 
 def stats_key(s):
@@ -268,6 +307,267 @@ def profile_dispatch(dispatch, reps: int = 3) -> tuple[float, float, list]:
             rows.append((e.self_device_time_total / reps / 1e3, e.count // reps, e.key))
     rows.sort(reverse=True)
     return wall, sum(r[0] for r in rows), rows
+
+
+def write_capture(job: tuple) -> list[str]:
+    """Render one capture of the app phase to its file; the DF17 addresses
+    it holds.  Runs in a worker process."""
+    path, fmt, duration_s, seed, addr_base = job
+    cap = build_traffic_capture(duration_s, APP_AIRCRAFT, seed, addr_base=addr_base)
+    if fmt == "modeac":
+        # Mode C replies at the first aircraft's altitude (3000 ft), and
+        # Mode A replies of codes no aircraft squawks
+        for i, t in enumerate(np.arange(0.013, duration_s - 0.01, 0.0419)):
+            code = modec_to_modea(30) if i % 2 else MODEAC_CODES[i % 4]
+            cap.add_modeac(code, float(t), amplitude=0.5, phase=0.05)
+    if fmt == "sc16":
+        cap.write_sc16(path)
+    else:
+        cap.write_uc8(path)
+    return sorted({t["hex"][2:8] for t in cap.truth if t.get("hex", "").startswith("8d")})
+
+
+def render_captures(jobs: list[tuple]) -> list[list[str]]:
+    """write_capture over the jobs in worker processes, one per core."""
+    workers = min(len(jobs), os.cpu_count() or 1)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        return list(pool.map(write_capture, jobs))
+
+
+class RecordingApp(app_main.App):
+    """The port's App, keeping the frames its executor thread demodulated."""
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.frames = []
+
+    def handle_frame(self, frame) -> None:
+        self.frames.append(frame)
+        super().handle_frame(frame)
+
+
+def make_app(argv: list[str], device: str, cls=app_main.App):
+    """An App from argv, on the card or (device="cpu") on the CPU through
+    READSB_TPU_PLATFORM, at APP_EPOCH_MS."""
+    old = os.environ.pop("READSB_TPU_PLATFORM", None)
+    if device == "cpu":
+        os.environ["READSB_TPU_PLATFORM"] = "cpu"
+    try:
+        app = cls(app_main.parse_args(argv))
+    finally:
+        os.environ.pop("READSB_TPU_PLATFORM", None)
+        if old is not None:
+            os.environ["READSB_TPU_PLATFORM"] = old
+    check(app.device.type == device, f"the app chose {app.device}, not {device}")
+    app.epoch_ms = APP_EPOCH_MS
+    return app
+
+
+def run_app(app) -> float:
+    """Seconds of app.run_ifile() on the host clock, device work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asyncio.run(app.run_ifile())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def app_results(app) -> dict:
+    """What the app gives a user: aircraft.json, receiver.json, the stats
+    counters (stats.json without its wall-clock fields), the message count,
+    the demod stats and print_stats' lines from the sample count on."""
+    now = app.now_ms()
+    if app.args.modeac:
+        app.tracker.match_ac(now)  # what run_periodic does each tick
+    app.stats_collector.sample(app, now / 1000.0)
+    sj = app.stats_collector.stats_json(app, now / 1000.0)
+    for window in sj.values():
+        for k in APP_WALL_CLOCK:
+            window.pop(k)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        app.print_stats()
+    st = app._demod.stats
+    return {
+        "aircraft.json": json_out.generate_aircraft_json(app.tracker, now, app.messages),
+        "receiver.json": json_out.generate_receiver_json(1000, app.args.lat, app.args.lon),
+        "stats.json": sj,
+        "messages": app.messages,
+        "demod": (app._demod.scan_global, st.preambles, st.rejected_bad,
+                  st.rejected_unknown_icao, list(st.accepted),
+                  getattr(app._demod, "stats_modeac", 0)),
+        "print_stats": err.getvalue().splitlines()[1:],
+        "modeac": [x.tolist() for x in (app.tracker.modeac_count, app.tracker.modeac_match)],
+    }
+
+
+def first_diff(a, b, path: str = "") -> str:
+    """Where two JSON-like values first differ, and the two values there."""
+    if type(a) is not type(b):
+        return f"{path}: {a!r:.200} != {b!r:.200}"
+    if isinstance(a, dict):
+        for k in sorted(set(a) | set(b), key=str):
+            if a.get(k, "<missing>") != b.get(k, "<missing>"):
+                return first_diff(a.get(k, "<missing>"), b.get(k, "<missing>"), f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path}: {len(a)} items != {len(b)} items"
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_diff(x, y, f"{path}[{i}]")
+    return f"{path}: {a!r:.200} != {b!r:.200}"
+
+
+def with_positions(doc: dict) -> set[str]:
+    return {a["hex"] for a in doc["aircraft"] if "lat" in a}
+
+
+def app_phase(card: str) -> dict[str, int]:
+    """The app on the card: parity with the CPU app run on three routes,
+    the command line, and a timed run.  Returns the kernel launches of the
+    three counted routes."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_app_")
+    d = tmp.name
+    n = N_CHAN
+    group = n // APP_GROUPS
+    parity = [os.path.join(d, f"rx{c:02d}.uc8.dat") for c in range(n)]
+    timed = [os.path.join(d, f"timed{c:02d}.uc8.dat") for c in range(n)]
+    one16, one_ac = os.path.join(d, "one.sc16.dat"), os.path.join(d, "ac.uc8.dat")
+    base = [0x400000 + (c // group) * 0x10000 for c in range(n)]
+    jobs = ([(parity[c], "uc8", APP_PARITY_S, 100 + c, base[c]) for c in range(n)]
+            + [(timed[c], "uc8", APP_TIMED_S, 300 + c, base[c]) for c in range(n)]
+            + [(one16, "sc16", 1.0, 500, 0x500000), (one_ac, "modeac", 1.0, 501, 0x510000)])
+    t0 = time.perf_counter()
+    addrs = render_captures(jobs)
+    scene = set().union(*addrs[:n])
+    scene_timed = set().union(*addrs[n: 2 * n])
+    log(f"app: {n} captures of {APP_PARITY_S} s and {n} of {APP_TIMED_S} s ({APP_GROUPS} groups "
+        f"of {group} receivers, {APP_AIRCRAFT} aircraft per group: {len(scene_timed)} distinct "
+        f"aircraft), one sc16 and one Mode A/C capture of 1.0 s, rendered in "
+        f"{time.perf_counter() - t0:.1f} s by {min(len(jobs), os.cpu_count() or 1)} processes")
+    check(len(scene_timed) >= 100, f"the timed scene has {len(scene_timed)} aircraft, not 100")
+
+    # --- parity: each route on the card against the CPU app run, counted -------
+    routes = {
+        "multi": ["--ifile", ",".join(parity)],
+        "sc16": ["--ifile", one16, "--iformat", "sc16", "--lat", "46.5", "--lon", "6.8"],
+        "modeac": ["--ifile", one_ac, "--modeac"],
+    }
+    app_launches = {name: 0 for name in WRAPPERS}
+    card_multi = None
+    for route, extra in routes.items():
+        argv = ["--device-type", "ifile", "--blocks-per-batch", "1", *extra]
+        card_app = make_app(argv, "cuda", RecordingApp)
+        reset_counts()
+        t_card = run_app(card_app)
+        launches = read_counts()
+        check_launched(launches, APP_ROUTES[route], f"the app's {route} route")
+        for name, count in launches.items():
+            app_launches[name] += count
+        cpu_app = make_app(argv, "cpu")
+        t0 = time.perf_counter()
+        asyncio.run(cpu_app.run_ifile())
+        t_cpu = time.perf_counter() - t0
+        got, want = app_results(card_app), app_results(cpu_app)
+        for key in want:
+            check(got[key] == want[key], f"app {route}: {key} on the card differs from the CPU "
+                                         f"run at {first_diff(got[key], want[key])}")
+        doc = got["aircraft.json"]
+        check(got["messages"] > 100 and len(with_positions(doc)) >= 5,
+              f"app {route}: {got['messages']} messages, {len(with_positions(doc))} positions")
+        what = ("aircraft.json, receiver.json, stats counters, demod stats, print_stats and "
+                f"{got['messages']} messages on the card == CPU run")
+        if route == "multi":
+            card_multi = doc
+            hexes = {a["hex"] for a in doc["aircraft"]}
+            check(scene <= hexes, f"app multi: {len(scene - hexes)} scene aircraft missing")
+            check(len(with_positions(doc) & scene) >= 0.9 * len(scene),
+                  f"app multi: only {len(with_positions(doc) & scene)}/{len(scene)} with positions")
+            what += f"; {len(scene)} scene aircraft, {len(with_positions(doc))} with positions"
+        else:
+            # the frames feed() gave in the executor thread == a direct call
+            # in this thread, over the same chunks
+            direct = pipeline.Demodulator(fmt=card_app._demod.fmt, blocks_per_batch=1,
+                                          modeac=route == "modeac", device=DEV)
+            raw = open(extra[1], "rb").read()
+            step = direct.super_samples * (2 if route == "modeac" else 4)
+            frames = [f for i in range(0, len(raw), step) for f in direct.feed(raw[i:i + step])]
+            frames += direct.flush()
+            check(frame_key(frames) == frame_key(card_app.frames),
+                  f"app {route}: the executor thread's frames differ from a direct call's")
+            what += f"; its {len(frames)} frames from the executor thread == a direct call's"
+        if route == "modeac":
+            check(got["demod"][5] > 10 and any(got["modeac"][1]),
+                  f"app modeac: {got['demod'][5]} Mode A/C replies, none matched to an aircraft")
+        log(f"app {route}: {what}; launches={launches}; card {t_card:.2f} s, CPU {t_cpu:.2f} s "
+            f"on {card}")
+
+    # --- the command line on the card over the 64 files ------------------------
+    out = os.path.join(d, "json")
+    env = {k: v for k, v in os.environ.items() if k != "READSB_TPU_PLATFORM"}
+    cmd = [sys.executable, "-m", "readsb_tpu_torch.app.main", "--device-type", "ifile",
+           "--ifile", ",".join(parity), "--blocks-per-batch", "1", "--write-json", out, "--stats"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                       capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    check(r.returncode == 0, f"the command line exited {r.returncode}: {r.stderr[-1500:]}")
+    cli_doc = json.load(open(os.path.join(out, "aircraft.json")))
+    check(os.path.exists(os.path.join(out, "receiver.json"))
+          and os.path.exists(os.path.join(out, "stats.json")),
+          "the command line wrote no receiver.json or stats.json")
+    cli_doc.pop("now")
+    want_doc = dict(card_multi)
+    want_doc.pop("now")
+    check(cli_doc == want_doc, "the command line's aircraft.json differs from the app run's")
+    check(scene <= with_positions(cli_doc) | {a["hex"] for a in cli_doc["aircraft"]},
+          "the command line's aircraft.json lacks scene aircraft")
+    log(f"app command line: exit 0 in {t_cli:.1f} s; aircraft.json ({len(cli_doc['aircraft'])} "
+        f"aircraft, {len(with_positions(cli_doc))} with positions) == the app run's apart from "
+        f"now; receiver.json, stats.json written; {r.stderr.strip().splitlines()[-3].strip()} "
+        f"on {card}")
+
+    # --- timed: 64 receivers x APP_TIMED_S s, as a user runs it ------------------
+    argv = ["--device-type", "ifile", "--blocks-per-batch", "1", "--ifile", ",".join(timed)]
+    app = make_app(argv, "cuda")
+    reset_counts()
+    wall = run_app(app)
+    timed_launches = read_counts()
+    check_launched(timed_launches, APP_ROUTES["multi"], "the timed app run")
+    res = app_results(app)
+    samples = app._demod.scan_global * n
+    cpu = app.stats_collector.cpu
+    reader_s, demod_s = cpu["reader"] / 1e3, cpu["demod"] / 1e3
+    n_ac = len(res["aircraft.json"]["aircraft"])
+    check(len({a["hex"] for a in res["aircraft.json"]["aircraft"]} & scene_timed) >= 100,
+          "the timed run's aircraft.json holds fewer than 100 scene aircraft")
+    log(f"app timed: {n} receivers x {app._demod.scan_global} samples ({APP_TIMED_S} s each): "
+        f"wall {wall:.3f} s = {samples / wall / 1e6:.1f} MS/s end to end (realtime at {n} "
+        f"channels: {n * 2.4:.1f} MS/s) on {card}")
+    log(f"app timed, host split: reader {reader_s:.3f} s, demod (feed() in the executor) "
+        f"{demod_s:.3f} s, the rest (decode, track, loop) {wall - reader_s - demod_s:.3f} s "
+        f"of {wall:.3f} s on {card}")
+    log(f"app timed: {res['messages']} messages = {res['messages'] / wall:.0f} messages/s, "
+        f"{n_ac} aircraft in aircraft.json ({len(with_positions(res['aircraft.json']))} with "
+        f"positions); launches={timed_launches} on {card}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    app_p = make_app(argv, "cuda")
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_p = run_app(app_p)
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    n_launch = sum(e.count for e in dev)
+    check(busy > 0 and n_launch > 0, "the profiled app run shows no device activity")
+    check(app_results(app_p)["aircraft.json"] == res["aircraft.json"],
+          "the profiled app run's aircraft.json differs from the timed run's")
+    log(f"app profiled (the timed run again under torch.profiler): wall {wall_p:.3f} s, device "
+        f"busy {busy:.3f} s ({busy / wall_p * 100:.1f}%, idle {100 - busy / wall_p * 100:.1f}%), "
+        f"{n_launch} device launches on {card}; top:")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:80]}")
+    tmp.cleanup()
+    return app_launches
 
 
 def main() -> None:
@@ -799,7 +1099,10 @@ def main() -> None:
         f"{t_ungated * 1e3:.1f} ms = {4 * BLOCK_SAMPLES / t_ungated / 1e6:.1f} MS/s "
         f"(median of 3) on {card}")
 
-    print(json.dumps({"kernels": [
+    # --- the app on the card ---------------------------------------------------
+    app_launches = app_phase(card)
+
+    entries = [
         {
             "name": "dense_scan_uc8", "route": "cuda",
             "source": "readsb_tpu_torch/csrc/dense_scan_uc8.cu",
@@ -863,7 +1166,11 @@ def main() -> None:
             "bound_by": by_fu, "library_ms": None, "device_ms": dev_fu,
             "device_launches_per_call": calls_fu,
         },
-    ]}), flush=True)
+    ]
+    for entry in entries:
+        # the launches of the app phase's three counted routes
+        entry["app_launches"] = app_launches[entry["name"]]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

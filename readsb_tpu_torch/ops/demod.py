@@ -310,7 +310,9 @@ def window_sums(offsets: torch.Tensor, cs_hi: torch.Tensor, cs_lo: torch.Tensor)
     """Exact split hi/lo mag^2 sums over the long/short message bodies.
 
     Returns (sig_long, sig_short) int32[K, 2] from the dense stage's
-    wraparound-exact prefix sums (demod_2400.c:436-457 accounting).
+    wraparound-exact prefix sums (demod_2400.c:436-457 accounting).  The
+    sums run on over the dense stage's padding (dense_stage), so every
+    candidate below scan_len gets its whole window.
     """
     n = cs_hi.shape[0]
     last = (n // 128) * 128 - 1
@@ -354,12 +356,15 @@ def dense_stage(buf: torch.Tensor, threshold: int, *, raw_uc8: bool):
     """Stage 1: (corrbits, pwords, cs_hi, cs_lo) of raw words or magnitudes.
 
     Magnitudes on the card go to the dense-scan kernel, zero-padded to its
-    granule; on the CPU to _dense_stages, which takes any length.  The two
-    agree wherever a candidate below scan_len reads."""
+    granule; on the CPU to _dense_stages, which takes any length, with its
+    prefix sums run on over the same zero padding.  The two agree wherever
+    a candidate below scan_len reads, signal windows included."""
     if raw_uc8:
         return kernels.dense_scan_uc8(pad_raw_words(buf), threshold)
     if buf.device.type == "cpu":
-        return _dense_stages(buf, threshold)
+        corrbits, pwords, cs_hi, cs_lo = _dense_stages(buf, threshold)
+        pad = -(-buf.shape[0] // kernels.TILE) * kernels.TILE - cs_hi.shape[0]
+        return corrbits, pwords, *(torch.cat([s, s[-1:].expand(pad)]) for s in (cs_hi, cs_lo))
     return kernels.dense_scan(pad_mag(buf), threshold)
 
 

@@ -377,3 +377,46 @@ def build_standard_capture(duration_s: float = 2.0, n_aircraft: int = 6, seed: i
             t += rng.uniform(0.06, 0.14)
             k += 1
     return cap
+
+
+def build_traffic_capture(duration_s: float = 2.0, n_aircraft: int = 12, seed: int = 7,
+                          addr_base: int = 0x400000,
+                          noise_rms: float = 0.015) -> CaptureBuilder:
+    """A denser scene for the app: each aircraft, from address addr_base
+    on, sends DF11, odd and even DF17 positions in turn (so global CPR
+    decodes within a fraction of a second), velocity, and ident or DF4,
+    one every 30-80 ms, moving at its ground speed.  The seed sets the
+    noise and the message times; the tracks depend on the aircraft's
+    index only, so receivers with one addr_base see the same aircraft."""
+    cap = CaptureBuilder(duration_s, noise_rms=noise_rms, seed=seed)
+    rng = np.random.default_rng(seed)
+    for a in range(n_aircraft):
+        addr = addr_base + 0x101 * (a + 1)
+        lat0 = 46.0 + 0.13 * a
+        lon0 = 6.0 + 0.21 * a
+        alt = 3000 + 1000 * (a % 30)
+        gs = 180 + 7 * (a % 40)
+        trk = (a * 37.0 + seed) % 360
+        t = rng.uniform(0.005, 0.05)
+        k = 0
+        while t < duration_s - 0.01:
+            mps = gs * 0.514444
+            lat = lat0 + mps * math.cos(math.radians(trk)) * t / 111320.0
+            lon = lon0 + mps * math.sin(math.radians(trk)) * t / (
+                111320.0 * math.cos(math.radians(lat0))
+            )
+            kind = k % 5
+            if kind == 0:
+                msg = encode_df11(addr)
+            elif kind in (1, 3):
+                msg = encode_df17_position(addr, lat, lon, alt, odd=int(kind == 3))
+            elif kind == 2:
+                msg = encode_df17_velocity(addr, gs, trk, vr_fpm=((a % 7) - 3) * 256)
+            elif k % 10 == 4:
+                msg = encode_df17_ident(addr, f"TR{addr & 0xFFFF:04X}", 0xA3)
+            else:
+                msg = encode_df4(addr, alt)
+            cap.add_frame(msg, t, amplitude=0.2 + 0.1 * ((a + k) % 5))
+            t += rng.uniform(0.03, 0.08)
+            k += 1
+    return cap

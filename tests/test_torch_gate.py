@@ -42,10 +42,19 @@ _jax_gate = jax.jit(jax_gate.score_gate, static_argnames=_GATE_STATIC)
 
 
 def _cores(buf: np.ndarray, *, k, scan_len, **layout):
-    """The demod cores (JAX, port) of one magnitude buffer."""
-    jc = jax_demod._demod_core(jnp.asarray(buf), 58, k=k, scan_len=scan_len, l=64, **layout)
+    """The demod cores (JAX, port) of one magnitude buffer.
+
+    The port's prefix sums are readsb_tpu's, run on over the zero padding
+    to the dense kernel's granule (demod.dense_stage), as the card's are.
+    Both gates then read the port's sums, so that a row whose window ends
+    past readsb_tpu's shorter sums reads the same window in both."""
+    bcj, hj, lj = jax_demod._demod_core(jnp.asarray(buf), 58, k=k, scan_len=scan_len, l=64, **layout)
     tc = demod._demod_core(torch.from_numpy(buf.copy()), 58, k=k, scan_len=scan_len, l=64, **layout)
-    return jc, tc
+    for j, t in ((hj, tc[1]), (lj, tc[2])):
+        j, t = np.asarray(j), t.numpy()
+        np.testing.assert_array_equal(t[: len(j)], j)
+        assert len(t) % 65536 == 0 and (t[len(j):] == j[-1]).all()
+    return (bcj, jnp.asarray(tc[1].numpy()), jnp.asarray(tc[2].numpy())), tc
 
 
 def _compare(cores, tbl: np.ndarray, *, scan_len, valid_len, **kw):

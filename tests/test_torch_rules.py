@@ -23,7 +23,7 @@ PORT_FILES = sorted((REPO / "readsb_tpu_torch").rglob("*.py")) + [REPO / "chip_s
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "tools", "readsb_tpu")
+    return top in ("jax", "jaxlib", "tools", "readsb_tpu", "zstandard")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
