@@ -28,6 +28,17 @@ IQ files to aircraft.json) on the card:
                    64 receivers x 2.0 s with 104 distinct aircraft, again
                    under torch.profiler
 
+and then the network layer:
+
+  net              a feeder App on the card over 8 uc8 receivers x 1.0 s
+                   serves Beast, raw and SBS to clients that connect
+                   before the replay, and the /re-api server; its lanes'
+                   bytes, its API answers and aircraft.json equal the same
+                   run on the CPU; an aggregator App (--net-only
+                   --no-net-bulk-drain) takes the feeder's Beast lane
+                   through --net-connector and holds its aircraft; 200
+                   timed ?all queries and the host split
+
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
@@ -62,6 +73,7 @@ from readsb_tpu_torch import BUILD_DIR, pipeline
 from readsb_tpu_torch.app import main as app_main
 from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT
 from readsb_tpu_torch.decode.mode_ac import modec_to_modea
+from readsb_tpu_torch.io import beast as beast_io
 from readsb_tpu_torch.io import json_out
 from readsb_tpu_torch.ops import demod as demod_ops
 from readsb_tpu_torch.ops import fused, kernels
@@ -347,6 +359,19 @@ class RecordingApp(app_main.App):
         super().handle_frame(frame)
 
 
+class MessageRecordingApp(app_main.App):
+    """The port's App, keeping (message, 12 MHz timestamp) of each message
+    it hands to its output lanes."""
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.sent = []
+
+    def handle_message(self, mm, raw_ts: int = 0, signal: float = 0.0) -> None:
+        self.sent.append((bytes(mm.msg), raw_ts))
+        super().handle_message(mm, raw_ts=raw_ts, signal=signal)
+
+
 def make_app(argv: list[str], device: str, cls=app_main.App):
     """An App from argv, on the card or (device="cpu") on the CPU through
     READSB_TPU_PLATFORM, at APP_EPOCH_MS."""
@@ -568,6 +593,235 @@ def app_phase(card: str) -> dict[str, int]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:80]}")
     tmp.cleanup()
     return app_launches
+
+
+# the network phase: a feeder on 8 receivers of 13 aircraft each (one
+# address base per receiver, so 104 aircraft), and an aggregator on its
+# Beast lane
+NET_RECEIVERS = 8
+NET_S = 1.0
+NET_QUERIES = 200
+NET_TIMEOUT = 60.0  # seconds for any one network read or await
+SBS_CLOCK_FIELDS = slice(6, 10)  # SBS fields 7-10: the message's and the line's date and time
+
+
+def free_port_block(n: int) -> int:
+    """A base port where base..base+n-1 are all bindable on 127.0.0.1 now."""
+    import socket
+
+    for _ in range(200):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        base = s.getsockname()[1]
+        s.close()
+        socks = []
+        try:
+            for k in range(n):
+                t = socket.socket()
+                t.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                t.bind(("127.0.0.1", base + k))
+                socks.append(t)
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+        if len(socks) == n:
+            return base
+    raise RuntimeError("no free block of ports")
+
+
+async def read_to_eof(reader) -> bytes:
+    out = bytearray()
+    while True:
+        data = await asyncio.wait_for(reader.read(1 << 16), NET_TIMEOUT)
+        if not data:
+            return bytes(out)
+        out += data
+
+
+async def api_get(reader, writer, target: str) -> bytes:
+    """One GET on a keep-alive connection to the API; the body."""
+    writer.write(b"GET %s HTTP/1.1\r\nHost: localhost\r\n\r\n" % target.encode())
+    head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), NET_TIMEOUT)
+    check(head.startswith(b"HTTP/1.1 200 OK"), f"API {target}: {head[:60]!r}")
+    length = int(head.lower().split(b"content-length:")[1].split(b"\r\n")[0])
+    return await asyncio.wait_for(reader.readexactly(length), NET_TIMEOUT)
+
+
+async def _noop() -> None:
+    pass
+
+
+async def net_run(paths: list[str], device: str, d: str, aggregate: bool) -> dict:
+    """The feeder App over `paths` on `device`, its Beast, raw and SBS
+    lanes read by clients that connect before the replay, the API queried
+    after it; with `aggregate`, an aggregator App on the feeder's Beast
+    lane and 200 timed `?all` queries.  The kernel launch counts are set
+    to 0 just before the feeder's replay and read just after."""
+    base = free_port_block(8)
+    sbs, bo, ro, api_port = base, base + 5, base + 6, base + 7  # sbs+1..+4: its variant lanes
+    out_dir = os.path.join(d, f"feeder_{device}")
+    argv = ["--device-type", "ifile", "--ifile", ",".join(paths), "--blocks-per-batch", "1",
+            "--net", "--net-bind-address", "127.0.0.1", "--net-bo-port", str(bo),
+            "--net-ro-port", str(ro), "--net-sbs-port", str(sbs), "--net-api-port", str(api_port),
+            "--write-json", out_dir, "--write-json-every", "0.25"]
+    feeder = make_app(argv, device, MessageRecordingApp)
+    await asyncio.wait_for(feeder.setup_net(), NET_TIMEOUT)
+    feeder.setup_net = _noop  # bound above, so that the clients connect before the replay
+    clients = {}
+    for name, port in (("beast", bo), ("raw", ro), ("sbs", sbs)):
+        clients[name] = await asyncio.wait_for(
+            asyncio.open_connection("127.0.0.1", port), NET_TIMEOUT)
+    aggregator = agg_task = None
+    if aggregate:
+        aggregator = app_main.App(app_main.parse_args([
+            "--net-only", "--no-net-bulk-drain", "--net-connector", f"127.0.0.1,{bo},beast_in",
+            "--write-json", os.path.join(d, "aggregator"), "--write-json-every", "0.25"]))
+        agg_task = asyncio.ensure_future(aggregator.amain())
+    res = {"feeder": feeder, "aggregator": aggregator}
+    try:
+        async def connected():
+            while (len(feeder.out_beast.clients) < 1 + aggregate or not feeder.out_raw.clients
+                   or not feeder.out_sbs.clients):
+                await asyncio.sleep(0.01)
+
+        await asyncio.wait_for(connected(), NET_TIMEOUT)
+        reads = {k: asyncio.ensure_future(read_to_eof(r)) for k, (r, _) in clients.items()}
+        reset_counts()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = await asyncio.wait_for(feeder.amain(), 600)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - t0
+        res["launches"] = read_counts()
+        check(rc == 0, f"the feeder on {device} exited {rc}")
+        res["streams"] = {k: await asyncio.wait_for(t, NET_TIMEOUT) for k, t in reads.items()}
+        feeder.api_server.update(feeder.now_ms())  # the API over the final tracker state
+        r, w = await asyncio.wait_for(asyncio.open_connection("127.0.0.1", api_port), NET_TIMEOUT)
+        try:
+            res["all"] = json.loads(await api_get(r, w, "/?all"))
+            ac = [a for a in res["all"]["aircraft"] if "lat" in a]
+            check(len(ac) >= 2, f"the feeder on {device}: {len(ac)} aircraft with positions")
+            res["circle"] = json.loads(await api_get(
+                r, w, "/?circle=%.4f,%.4f,30" % (ac[0]["lat"], ac[0]["lon"])))
+            res["find_hex"] = json.loads(await api_get(
+                r, w, "/?find_hex=%s,%s" % (ac[0]["hex"], ac[1]["hex"])))
+            if aggregate:
+                lat = []
+                for _ in range(NET_QUERIES):
+                    t1 = time.perf_counter()
+                    await api_get(r, w, "/?all")
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                res["api_ms"] = sorted(lat)
+        finally:
+            w.close()
+        if aggregate:
+            async def aggregated():  # every frame read off the feeder's Beast lane
+                while len(aggregator._net_queue) + aggregator.remote_modes < feeder.messages:
+                    await asyncio.sleep(0.01)
+
+            await asyncio.wait_for(aggregated(), NET_TIMEOUT)
+    finally:
+        if feeder.api_server is not None and feeder.api_server.server is not None:
+            feeder.api_server.server.close()
+        if aggregator is not None:
+            aggregator._exit_event.set()
+            await asyncio.wait_for(agg_task, NET_TIMEOUT)
+        for _, w in clients.values():
+            w.close()
+    res["aircraft.json"] = json.load(open(os.path.join(out_dir, "aircraft.json")))
+    if aggregate:
+        res["aggregator.json"] = json.load(open(os.path.join(d, "aggregator", "aircraft.json")))
+    return res
+
+
+def sbs_without_clock(stream: bytes) -> list[list[str]]:
+    lines = [ln.split(",") for ln in stream.decode().split("\r\n") if ln]
+    for f in lines:
+        f[SBS_CLOCK_FIELDS] = []
+    return lines
+
+
+def without_ptime(doc: dict) -> dict:
+    return {k: v for k, v in doc.items() if k != "ptime"}
+
+
+def net_phase(card: str) -> dict[str, int]:
+    """The network layer on the card: a feeder App demodulating on the card
+    serves Beast, raw and SBS and the API, each held against the same run
+    on the CPU; an aggregator App on its Beast lane holds its aircraft.
+    Returns the feeder's kernel launches."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_net_")
+    d = tmp.name
+    paths = [os.path.join(d, f"net{c}.uc8.dat") for c in range(NET_RECEIVERS)]
+    jobs = [(paths[c], "uc8", NET_S, 700 + c, 0x600000 + c * 0x10000)
+            for c in range(NET_RECEIVERS)]
+    scene = set().union(*render_captures(jobs))
+    card_run = asyncio.run(net_run(paths, "cuda", d, aggregate=True))
+    cpu_run = asyncio.run(net_run(paths, "cpu", d, aggregate=False))
+    feeder, launches = card_run["feeder"], card_run["launches"]
+    check_launched(launches, APP_ROUTES["multi"], "the network phase's feeder")
+    got, want = card_run["streams"], cpu_run["streams"]
+    check(got["beast"] == want["beast"] and len(got["beast"]) > 0,
+          "the Beast lane's bytes on the card differ from the CPU run's")
+    check(got["raw"] == want["raw"] and len(got["raw"]) > 0,
+          "the raw lane's bytes on the card differ from the CPU run's")
+    check(sbs_without_clock(got["sbs"]) == sbs_without_clock(want["sbs"]) and got["sbs"],
+          "the SBS lane's lines on the card differ from the CPU run's")
+    deframed = list(beast_io.BeastDeframer().feed(got["beast"]))
+    check([(f.msg, f.timestamp) for f in deframed] == feeder.sent,
+          "the Beast lane's frames differ from the feeder's accepted frames")
+    for q in ("all", "circle", "find_hex"):
+        check(without_ptime(card_run[q]) == without_ptime(cpu_run[q]),
+              f"API ?{q} on the card differs from the CPU run: "
+              f"{first_diff(without_ptime(card_run[q]), without_ptime(cpu_run[q]))}")
+    check(card_run["aircraft.json"] == cpu_run["aircraft.json"],
+          "the feeder's aircraft.json on the card differs from the CPU run's")
+    hexes = {a["hex"] for a in card_run["all"]["aircraft"]}
+    check(hexes == {a["hex"] for a in card_run["aircraft.json"]["aircraft"]} and scene <= hexes,
+          f"?all: {len(hexes)} aircraft, {len(scene - hexes)} scene aircraft missing")
+    check(len(card_run["find_hex"]["aircraft"]) == 2 and card_run["circle"]["aircraft"],
+          "?find_hex or ?circle answered no aircraft")
+
+    # the aggregator stamps messages with its own clock ("seen", "seen_pos")
+    # and keeps the signal as the Beast lane's byte ("rssi")
+    def strip(doc):
+        return {a["hex"]: {k: v for k, v in a.items() if k not in ("seen", "seen_pos", "rssi")}
+                for a in doc["aircraft"]}
+
+    agg = card_run["aggregator"]
+    check(strip(card_run["aggregator.json"]) == strip(card_run["aircraft.json"]),
+          "the aggregator's aircraft differ from the feeder's: " + first_diff(
+              strip(card_run["aggregator.json"]), strip(card_run["aircraft.json"])))
+    check(agg.remote_modes == len(feeder.sent),
+          f"the aggregator took {agg.remote_modes} of {len(feeder.sent)} frames")
+    wall, msgs = card_run["wall"], feeder.messages
+    lat = card_run["api_ms"]
+    log(f"net feeder: {NET_RECEIVERS} uc8 receivers x {NET_S} s, {len(scene)} scene aircraft; "
+        f"Beast ({len(got['beast'])} B), raw ({len(got['raw'])} B) and SBS "
+        f"({got['sbs'].count(b'\n')} lines) on the card == CPU run (SBS clock fields aside); "
+        f"the Beast lane's {len(deframed)} frames == the accepted frames; ?all, ?circle, "
+        f"?find_hex and aircraft.json == CPU run; launches={launches} on {card}")
+    log(f"net feeder: replay wall {wall:.3f} s, {msgs} messages = {msgs / wall:.0f} messages/s "
+        f"through the lanes; Beast {len(got['beast']) / wall / 1e3:.1f} kB/s, raw "
+        f"{len(got['raw']) / wall / 1e3:.1f} kB/s, SBS {len(got['sbs']) / wall / 1e3:.1f} kB/s "
+        f"on {card}")
+    log(f"net API: {NET_QUERIES} sequential ?all ({len(hexes)} aircraft, "
+        f"{len(json.dumps(card_run['all'])) / 1e3:.1f} kB) on one connection over 127.0.0.1: "
+        f"median {statistics.median(lat):.3f} ms, p99 {lat[int(0.99 * len(lat)) - 1]:.3f} ms "
+        f"(host clock) on {card}")
+    split = ", ".join(f"{k} {v:.1f}" for k, v in feeder.stats_collector.cpu.items())
+    agg_split = ", ".join(f"{k} {v:.1f}" for k, v in agg.stats_collector.cpu.items())
+    log(f"net host split, ms (stats_collector.cpu): feeder {split}; aggregator {agg_split}; "
+        f"the CPU run's replay wall {cpu_run['wall']:.3f} s on {card}")
+    log(f"net aggregator: {agg.remote_modes} frames over --net-connector beast_in, "
+        f"{len(card_run['aggregator.json']['aircraft'])} aircraft == the feeder's "
+        f"(seen, seen_pos, rssi aside) on {card}")
+    tmp.cleanup()
+    return launches
 
 
 def main() -> None:
@@ -1101,6 +1355,7 @@ def main() -> None:
 
     # --- the app on the card ---------------------------------------------------
     app_launches = app_phase(card)
+    net_launches = net_phase(card)
 
     entries = [
         {
@@ -1168,8 +1423,10 @@ def main() -> None:
         },
     ]
     for entry in entries:
-        # the launches of the app phase's three counted routes
+        # the launches of the app phase's three counted routes, and of the
+        # network phase's feeder
         entry["app_launches"] = app_launches[entry["name"]]
+        entry["net_launches"] = net_launches[entry["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

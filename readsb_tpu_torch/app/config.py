@@ -335,17 +335,8 @@ def parse_args(argv=None):
 
 # (ROADMAP item, what it brings, options) of the layers still to port;
 # each option's default is falsy, so an option is given when its value is
-# truthy ("0" is the API port's default spelled out)
-_NET_PORTS = (
-    "net_ri_port", "net_ro_port", "net_bi_port", "net_bo_port", "net_sbs_port",
-    "net_sbs_in_port", "net_json_port", "net_garbage_port", "net_api_port",
-    "net_uat_in_port", "net_uat_replay_port", "net_vrs_port", "net_ai_port",
-    "net_ao_port", "net_sbs_jaero_port", "net_sbs_jaero_in_port",
-    "net_beast_reduce_out_port", "net_connector",
-)
+# truthy
 DEFERRED = (
-    ("8b", "the network engine, its protocols and the API",
-     ("net", "net_only", *_NET_PORTS, "modeac_auto", "interactive")),
     ("8c", "persistence and history",
      ("write_state", "write_prom", "json_globe_index", "heatmap",
       "globe_history_dir", "db_file", "dump_beast", "dump_beast_dir")),
@@ -353,18 +344,66 @@ DEFERRED = (
     ("10", "the device arena", ("device_arena",)),
 )
 
+# connector protocols whose lanes need the per-message decoded fields
+_SCALAR_OUT = {
+    "sbs_out", "sbs_out_mlat", "sbs_out_prio", "sbs_out_jaero",
+    "sbs_out_replay", "asterix_out", "json_out",
+    "beast_reduce_out", "beast_reduce_plus_out", "feedmap_out",
+}
+
+
+def bulk_drain_enabled(args) -> bool:
+    """readsb_tpu's rule for its columnar network drain
+    (App._bulk_drain_enabled there), unchanged.
+
+    Explicit --net-bulk-drain / --no-net-bulk-drain always wins.  Auto
+    mode picks the columnar path whenever network ingest is on and nothing
+    requires the scalar per-message pipeline: output lanes that need
+    per-message decoded fields or reduce_forward decisions (SBS x5 /
+    ASTERIX / json-position / beast-reduce / feedmap), or Mode A/C
+    decoding.
+    """
+    forced = getattr(args, "net_bulk_drain", None)
+    if forced is not None:
+        return bool(forced)
+    if not (args.net or args.net_only):
+        return False
+    if args.modeac:
+        return False
+    if (
+        args.net_sbs_port
+        or args.net_json_port
+        or args.net_ao_port
+        or args.net_beast_reduce_out_port
+    ):
+        return False
+    for conn in args.net_connector or []:
+        parts = [t.strip() for t in str(conn).split(",")]
+        if len(parts) >= 3 and parts[2] in _SCALAR_OUT:
+            return False
+    return True
+
 
 def refuse_deferred(args) -> None:
     """Raise NotImplementedError for an option or a source whose layer
-    the port does not have yet, naming its ROADMAP item."""
+    the port does not have yet, naming its ROADMAP item.  That includes
+    network ingest where readsb_tpu's rule picks its columnar drain: the
+    port never switches to the scalar path quietly."""
     for item, what, dests in DEFERRED:
         for dest in dests:
-            value = getattr(args, dest)
-            if value and value != "0":
+            if getattr(args, dest):
                 flag = "--" + dest.replace("_", "-")
                 raise NotImplementedError(
                     f"{flag}: {what} is ROADMAP item {item} of the port"
                 )
+    if bulk_drain_enabled(args):
+        raise NotImplementedError(
+            "--net / --net-only: with no output lane that needs the "
+            "per-message path, readsb_tpu drains network input through its "
+            "columnar bulk path, which is ROADMAP item 8d of the port; "
+            "--no-net-bulk-drain, or a scalar lane such as --net-sbs-port, "
+            "runs the scalar drain"
+        )
     if args.device_type not in ("ifile", "none"):
         raise NotImplementedError(
             f"--device-type {args.device_type}: the SDR and serial sources are "

@@ -1,9 +1,17 @@
-"""Application entry point: IQ file -> demod -> decode -> track -> JSON.
+"""Application entry point: wires source -> demod -> decode -> track -> serve.
 
-The `--device-type ifile` part of readsb_tpu's app, on the port's
-demodulator: a single asyncio loop on the host feeds the batched device
-pipeline from the default executor, and periodic coroutines sweep the
-tracker and write aircraft.json, receiver.json and stats.json.
+The `--device-type ifile` and `--net-only` parts of readsb_tpu's app, on
+the port's demodulator: a single asyncio loop on the host feeds the
+batched device pipeline from the default executor; the network engine
+serves the Beast, raw, SBS, JSON, VRS, ASTERIX and UAT lanes, takes
+Beast, raw, SBS, ASTERIX, UAT, planefinder and gpsd input, and answers
+/re-api queries; periodic coroutines sweep the tracker and write
+aircraft.json, receiver.json, stats.json and clients.json.
+
+Network input drains through the scalar per-message path only
+(`drain_net_queue`).  Where readsb_tpu's rule picks its columnar drain,
+the port refuses at argument time (`config.bulk_drain_enabled`, ROADMAP
+item 8d).
 
 The device is explicit.  Under READSB_TPU_PLATFORM=cpu the demodulator
 runs its plain PyTorch versions on the CPU; otherwise it runs on the card,
@@ -23,8 +31,12 @@ import time
 import torch
 
 from .. import constants
-from ..decode.fields import ModesMessage, decode_frame
+from ..decode.fields import AddrType, ModesMessage, Source, decode_frame
+from ..io import beast as beast_io
 from ..io import json_out
+from ..io import raw as raw_io
+from ..io import sbs as sbs_io
+from ..io.net import Connector, InputConnection, InputService, NetEngine
 from ..io.stats import StatsCollector
 from ..track.tracker import Tracker
 from .config import parse_args
@@ -58,11 +70,53 @@ class App:
             receiver_lon=args.lon,
             max_range_km=args.max_range * 1.852,
         )
+        self.net = NetEngine()
+        self._net_queue = []
+        self._shared_net_scorer = None
         self.epoch_ms = int(time.time() * 1000)
         self.messages = 0
+        self.remote_modes = 0
+        self.remote_bad = 0
+        self.remote_modeac = 0
         self.start_time = time.time()
         self._demod = None
         self.stats_collector = StatsCollector()
+        hb = args.net_heartbeat
+        # heartbeat payloads per wire format (net_io.c:109-126)
+        ro_kw = dict(flush_bytes=args.net_ro_size, flush_interval=args.net_ro_interval)
+        if args.net_buffer != 2:  # --net-buffer: 64KiB << n per-client backlog
+            ro_kw["max_backlog"] = 65536 << max(0, min(args.net_buffer, 12))
+        self.out_raw = self.net.add_output(
+            "raw_out", heartbeat=b"*0000;\n", heartbeat_interval=hb, **ro_kw
+        )
+        self.out_beast = self.net.add_output(
+            "beast_out",
+            heartbeat=b"\x1a1" + b"\x00" * 9,
+            heartbeat_interval=hb,
+            **ro_kw,
+        )
+        self.out_sbs = self.net.add_output(
+            "sbs_out", heartbeat=b"\r\n", heartbeat_interval=hb
+        )
+        # SBS priority-variant lanes (net_io.c:951-984): routed by source
+        self.out_sbs_mlat = self.net.add_output("sbs_out_mlat", heartbeat=b"\r\n", heartbeat_interval=hb)
+        self.out_sbs_prio = self.net.add_output("sbs_out_prio", heartbeat=b"\r\n", heartbeat_interval=hb)
+        self.out_sbs_jaero = self.net.add_output("sbs_out_jaero", heartbeat=b"\r\n", heartbeat_interval=hb)
+        self.out_sbs_replay = self.net.add_output("sbs_out_replay", heartbeat=b"\r\n", heartbeat_interval=hb)
+        self.out_json = self.net.add_output("json_out")
+        self.out_garbage = self.net.add_output("garbage_out")
+        self.out_uat_replay = self.net.add_output("uat_replay_out")
+        self.out_vrs = self.net.add_output("vrs_out")
+        self.out_asterix = self.net.add_output("asterix_out")
+        self.out_beast_reduce = self.net.add_output(
+            "beast_reduce_out",
+            flush_bytes=args.net_ro_size,
+            flush_interval=(
+                args.net_ro_interval_beast_reduce
+                if args.net_ro_interval_beast_reduce is not None
+                else args.net_ro_interval
+            ),
+        )
         self.tracker.reduce_interval_ms = int(args.net_beast_reduce_interval * 1000)
         if args.net_beast_reduce_filter_dist is not None:
             self.tracker.reduce_filter_dist_m = args.net_beast_reduce_filter_dist * 1852.0
@@ -75,12 +129,15 @@ class App:
         )
         self.tracker.track_expire_jaero_ms = int(args.jaero_timeout * 60_000)
         self.tracker.outline.duration_ms = int(args.range_outline_hours * 3_600_000)
+        self._df_filter = None
+        if args.filter_DF:
+            self._df_filter = {int(x) for x in str(args.filter_DF).split(",") if x}
         self.tracker.cpr_focus = args.cpr_focus
 
     # ------------------------------------------------------------------
 
     def handle_frame(self, frame) -> None:
-        """One accepted demodulated frame -> decode, track."""
+        """One accepted demodulated frame -> decode, track, fan out."""
         mm = decode_frame(frame, epoch_ms=self.epoch_ms)
         self.stats_collector.note_signal(frame.signal_power)
         self.handle_message(mm, raw_ts=frame.timestamp, signal=frame.signal_power)
@@ -97,7 +154,12 @@ class App:
         ):
             return  # net_io.c:2956,4976: focus on a single feeder
         self.messages += 1
-        self.tracker.update(mm)
+        if getattr(mm, "remote", False):
+            if len(mm.msg) == 2:
+                self.remote_modeac += 1
+            else:
+                self.remote_modes += 1
+        a = self.tracker.update(mm)
         if self.args.show_raw:
             if self.args.onlyaddr:  # mode_s.c:1829: address-only display
                 print("%06x" % (mm.addr & 0xFFFFFF), flush=False)
@@ -106,7 +168,87 @@ class App:
                       flush=False)
             else:
                 print("*%s;" % mm.msg.hex(), flush=False)
-        # --filter-DF gates only the network outputs (ROADMAP item 8b)
+        if self._df_filter is not None and mm.msgtype not in self._df_filter:
+            return
+        is_mlat_src = mm.source == Source.MLAT
+        if self.out_raw.clients and not (is_mlat_src and not self.args.forward_mlat):
+            # 2-bit-corrected messages only with --net-verbatim (net_io.c:5840)
+            if mm.correctedbits < 2 or self.args.net_verbatim:
+                self.out_raw.send(raw_io.encode_line(mm.msg, raw_ts or None))
+        if self.out_beast.clients and len(mm.msg) in (2, 7, 14):
+            self._beast_send(
+                self.out_beast,
+                beast_io.encode_frame(mm.msg, raw_ts, signal, modeac=len(mm.msg) == 2),
+                mm,
+            )
+        sbs_lanes = []
+        is_mlat = mm.source == Source.MLAT
+        if self.out_sbs.clients and not is_mlat:
+            sbs_lanes.append(self.out_sbs)
+        if self.out_sbs_mlat.clients and is_mlat:
+            sbs_lanes.append(self.out_sbs_mlat)
+        if self.out_sbs_prio.clients and mm.source == Source.PRIO:
+            sbs_lanes.append(self.out_sbs_prio)
+        if self.out_sbs_jaero.clients and mm.source == Source.JAERO:
+            sbs_lanes.append(self.out_sbs_jaero)
+        if self.out_sbs_replay.clients and getattr(mm, "sbs_in", False):
+            sbs_lanes.append(self.out_sbs_replay)
+        if sbs_lanes and not (self.args.net_sbs_reduce and not mm.reduce_forward):
+            line = sbs_io.encode_line(
+                mm, geom_delta=(a.geom_delta if a is not None else None),
+                now_ms=mm.sys_timestamp_ms, use_gnss=self.args.gnss,
+            )
+            if line:
+                for lane in sbs_lanes:
+                    lane.send(line)
+        if self.out_json.clients and a is not None:
+            emit = mm.cpr_decoded
+            if (
+                not emit
+                and self.args.net_json_port_include_noposition
+                and mm.msgtype == 11
+                and mm.sys_timestamp_ms > (a.seen_pos or 0) + 10_000
+            ):
+                emit = True  # state for position-quiet aircraft (help.h:141)
+            iv_ms = self.args.net_json_port_interval * 1000.0
+            if emit and iv_ms > 0:
+                if getattr(a, "_next_json_port", 0) > mm.sys_timestamp_ms:
+                    emit = False
+                else:
+                    a._next_json_port = mm.sys_timestamp_ms + iv_ms
+            if emit:
+                import json as _json
+
+                self.out_json.send(
+                    (_json.dumps(json_out.aircraft_dict(self.tracker, a, mm.sys_timestamp_ms)) + "\n").encode()
+                )
+        # beast_reduce: only messages the tracker flagged interesting
+        # (reduce_forward decisions, track.c:2076-2326; writer net_io.c)
+        if (
+            self.out_beast_reduce.clients
+            and mm.reduce_forward
+            and len(mm.msg) in (7, 14)
+        ):
+            self._beast_send(
+                self.out_beast_reduce,
+                beast_io.encode_frame(mm.msg, raw_ts, signal),
+                mm,
+            )
+        if (
+            self.out_asterix.clients
+            and mm.addr != constants.HEX_UNKNOWN
+            and not (self.args.net_asterix_reduce and not mm.reduce_forward)
+            # CAT020/mlat and tisb reports are not emitted (net_io.c:2429-2433)
+            and mm.source != Source.MLAT
+            and mm.addrtype not in (
+                AddrType.TISB_ICAO, AddrType.TISB_TRACKFILE, AddrType.TISB_OTHER
+            )
+        ):
+            from ..io import asterix as asterix_io
+
+            pkt = asterix_io.encode_cat21(mm, now_ms=mm.sys_timestamp_ms)
+            if pkt:
+                self.out_asterix.send(pkt)
 
     def now_ms(self) -> int:
         """Current time for periodic sweeps.  During ifile replay this is
@@ -267,6 +409,360 @@ class App:
             mm.sys_timestamp_ms = self.epoch_ms + mm.timestamp // 12000
             self.handle_message(mm, raw_ts=mm.timestamp)
 
+    def _beast_send(self, svc, payload: bytes, mm) -> None:
+        """Beast output with optional 0xE3 receiver-id forwarding: resend
+        the id frame whenever it changes on the lane (net_io.c:1657-1680)."""
+        if self.args.net_receiver_id:
+            rid = getattr(mm, "receiver_id", 0)
+            if getattr(svc, "_last_rid", None) != rid:
+                svc._last_rid = rid
+                svc.send(beast_io.encode_receiver_id(rid))
+        svc.send(payload)
+
+    # ------------------------------------------------------------------
+
+    def _beast_input_factory(self):
+        app = self
+
+        class BeastIn(InputConnection):
+            def __init__(self):
+                # the scalar per-message deframer: the columnar one goes with
+                # the columnar drain (ROADMAP item 8d)
+                self.deframer = beast_io.BeastDeframer()
+                self.scorer = app._net_scorer()
+                self.ping_state = None  # set by InputService when ping=True
+
+            def _drain_controls(self) -> None:
+                if not self.deframer.commands:
+                    return
+                cmds, self.deframer.commands = self.deframer.commands, []
+                ps = self.ping_state
+                for c in cmds:
+                    if ps is not None and c[:1] == b"W" and c[1:2] == b"O":
+                        ps.enabled = True  # 'WO': high-res ping opt-in
+                    elif c[:1] == b"P" and len(c) >= 4:
+                        val = (c[1] << 16) | (c[2] << 8) | c[3]
+                        if ps is not None:
+                            # server role: the feeder echoed our ping
+                            ps.pong(
+                                val,
+                                app.now_ms() if app._demod else int(time.time() * 1000),
+                            )
+                        elif getattr(self, "writer", None) is not None:
+                            # client role: an upstream pinged us — echo it
+                            # back (pong(), net_io.c:1316-1320)
+                            from ..io.net import make_ping
+
+                            try:
+                                self.writer.write(make_ping(val))
+                            except Exception:
+                                pass
+
+            async def feed(self, data: bytes) -> None:
+                for bf in self.deframer.feed(data):
+                    if len(bf.msg) == 2:  # Beast type '1': Mode A/C
+                        from ..decode.mode_ac import decode_modeac_message
+
+                        code = (bf.msg[0] << 8) | bf.msg[1]
+                        mm = decode_modeac_message(code, timestamp=bf.timestamp)
+                        mm.sys_timestamp_ms = bf.synthetic_ms or app.now_ms()
+                        mm.remote = True
+                        mm.receiver_id = bf.receiver_id
+                        app.handle_message(mm, raw_ts=bf.timestamp, signal=bf.signal_level)
+                        continue
+                    if len(bf.msg) not in (7, 14):
+                        continue
+                    app._handle_net_frame(self.scorer, bf)
+                self._drain_controls()
+
+        return BeastIn
+
+    def _raw_input_factory(self):
+        app = self
+
+        class RawIn(InputConnection):
+            def __init__(self):
+                self.deframer = raw_io.RawDeframer()
+                self.scorer = app._net_scorer()
+
+            async def feed(self, data: bytes) -> None:
+                for rl in self.deframer.feed(data):
+                    if len(rl.msg) not in (7, 14):
+                        continue
+                    app._handle_net_frame(
+                        self.scorer,
+                        beast_io.BeastFrame(
+                            msg=rl.msg, timestamp=rl.timestamp,
+                            signal_byte=rl.signal_byte, msg_type=0,
+                        ),
+                    )
+
+        return RawIn
+
+    def _planefinder_input_factory(self):
+        """Planefinder DLE-stuffed binary input (net_io.c:3995-4103)."""
+        app = self
+
+        class PfIn(InputConnection):
+            def __init__(self):
+                from ..io import planefinder as pf_io
+
+                self.deframer = pf_io.PfDeframer()
+                self.scorer = app._net_scorer()
+
+            async def feed(self, data: bytes) -> None:
+                for pm in self.deframer.feed(data):
+                    if pm.is_modeac:
+                        if not app.args.modeac:
+                            continue
+                        from ..decode.mode_ac import decode_modeac_message
+
+                        mm = decode_modeac_message(
+                            (pm.msg[0] << 8) | pm.msg[1],
+                            sys_timestamp_ms=app.now_ms(),
+                        )
+                        if mm is not None:
+                            app.handle_message(mm)
+                        continue
+                    app._handle_net_frame(
+                        self.scorer,
+                        beast_io.BeastFrame(
+                            msg=pm.msg,
+                            timestamp=pm.timestamp_ns * 12 // 1000,  # ns -> 12MHz
+                            signal_byte=pm.signal_byte,
+                            msg_type=0,
+                        ),
+                    )
+
+        return PfIn
+
+    async def _gpsd_watch(self, writer) -> None:
+        from ..io import gpsd as gpsd_io
+
+        writer.write(gpsd_io.WATCH_COMMAND)
+
+    def _gpsd_input_factory(self):
+        """gpsd TPV JSON -> own receiver location (net_io.c:3609-3717)."""
+        app = self
+
+        class GpsdIn(InputConnection):
+            def __init__(self):
+                self._buf = b""
+
+            async def feed(self, data: bytes) -> None:
+                from ..io import gpsd as gpsd_io
+
+                self._buf += data
+                *lines, self._buf = self._buf.split(b"\n")
+                for line in lines:
+                    fix = gpsd_io.parse_tpv_line(line)
+                    if fix is None:
+                        continue
+                    lat, lon, _alt = fix
+                    app.tracker.receiver_lat = lat
+                    app.tracker.receiver_lon = lon
+                    log.info("gpsd: receiver position %.6f,%.6f", lat, lon)
+
+        return GpsdIn
+
+    def _uat_input_factory(self):
+        """dump978 raw lines -> synthetic DF18 (decodeUatMessage, net_io.c:4334-4371)."""
+        app = self
+
+        class UatIn(InputConnection):
+            def __init__(self):
+                self._buf = b""
+                self.scorer = app._net_scorer()
+
+            async def feed(self, data: bytes) -> None:
+                from ..io import uat as uat_io
+
+                self._buf += data
+                *lines, self._buf = self._buf.split(b"\n")
+                for line in lines:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    if app.out_uat_replay.clients:
+                        app.out_uat_replay.send(line + b"\n")
+                    frames, sig = uat_io.convert_line(line)
+                    for frame in frames:
+                        addr = int.from_bytes(frame[1:4], "big")
+                        now = app.now_ms()
+                        a = app.tracker.aircraft.get(addr)
+                        # ignore the whole first UAT line from a
+                        # (re)appearing aircraft — the reference returns
+                        # from decodeUatMessage, dropping every frame the
+                        # line synthesized (net_io.c:4357-4366)
+                        if a is None or now > a.seen + 300_000:
+                            app.tracker.get_or_create(addr, now).seen = now
+                            break
+                        app._handle_net_frame(
+                            self.scorer,
+                            beast_io.BeastFrame(
+                                msg=frame,
+                                timestamp=uat_io.MAGIC_UAT_TIMESTAMP,
+                                signal_byte=sig,
+                                msg_type=0,
+                            ),
+                        )
+
+        return UatIn
+
+    def _sbs_input_factory(self, source=Source.SBS):
+        """SBS/BaseStation CSV input (decodeSbsLine, net_io.c:2952-3183)."""
+        app = self
+
+        class SbsIn(InputConnection):
+            def __init__(self):
+                from ..io.sbs import SbsDeframer
+
+                self.deframer = SbsDeframer()
+
+            async def feed(self, data: bytes) -> None:
+                from ..decode.fields import AirGround
+
+                for sl in self.deframer.feed(data):
+                    mm = ModesMessage(
+                        msgtype=0,
+                        addr=sl.addr & 0xFFFFFF,
+                        source=source,
+                        sys_timestamp_ms=app.now_ms(),
+                    )
+                    mm.remote = True
+                    if sl.callsign:
+                        mm.callsign = sl.callsign
+                        mm.callsign_valid = True
+                    if sl.altitude is not None:
+                        mm.baro_alt = sl.altitude
+                    if sl.gs is not None:
+                        mm.gs_selected = mm.gs_v0 = sl.gs
+                    if sl.track is not None:
+                        from ..decode.fields import HeadingType
+
+                        mm.heading = sl.track
+                        mm.heading_type = HeadingType.GROUND_TRACK
+                    if sl.lat is not None and sl.lon is not None:
+                        mm.sbs_pos_valid = True
+                        mm.decoded_lat = sl.lat
+                        mm.decoded_lon = sl.lon
+                    if sl.vr is not None:
+                        mm.baro_rate = sl.vr
+                    if sl.squawk_dec is not None:
+                        try:
+                            mm.squawk_hex = int(str(sl.squawk_dec), 16)
+                        except ValueError:
+                            pass
+                    if sl.alert is not None:
+                        mm.alert = sl.alert
+                    if sl.spi is not None:
+                        mm.spi = sl.spi
+                    if sl.on_ground is not None:
+                        mm.airground = (
+                            AirGround.GROUND if sl.on_ground else AirGround.AIRBORNE
+                        )
+                    app.handle_message(mm)
+
+        return SbsIn
+
+    def _asterix_input_factory(self):
+        """ASTERIX CAT021 binary input (net_io.c:1922-2415)."""
+        app = self
+
+        class AsterixIn(InputConnection):
+            def __init__(self):
+                from ..io.asterix import AsterixDeframer
+
+                self.deframer = AsterixDeframer()
+
+            async def feed(self, data: bytes) -> None:
+                from ..io.asterix import decode_cat21
+
+                for frame in self.deframer.feed(data):
+                    mm = decode_cat21(frame, now_ms=app.now_ms())
+                    if mm is None:
+                        continue
+                    mm.remote = True
+                    app.handle_message(mm)
+
+        return AsterixIn
+
+
+    def _net_scorer(self):
+        """All network inputs share one Scorer — the reference's ICAO
+        filter is process-global (icao_filter.c), so frames from one
+        feeder teach addresses that validate frames from every other."""
+        if self._shared_net_scorer is None:
+            from ..decode.score import Scorer
+
+            self._shared_net_scorer = Scorer(
+                nfix=self.args.nfix_crc, fix_df=self.args.fix_df
+            )
+        return self._shared_net_scorer
+
+    def _handle_net_frame(self, scorer, bf) -> None:
+        """Network-received frame: queue for the batched decode drain.
+
+        The reference fans per-frame decode over a threadpool with staged
+        locks (net_io.c:5365-5474); here frames accumulate per tick and
+        the CRC stage runs as ONE vectorized batch (drain_net_queue).
+        """
+        self._net_queue.append(bf)
+        if len(self._net_queue) >= 8192:
+            self.drain_net_queue()
+
+
+    def drain_net_queue(self) -> None:
+        """Batched CRC + serial accept/track for all queued net frames."""
+        q = self._net_queue
+        if not q:
+            return
+        self._net_queue = []
+        _net_t0 = time.perf_counter()
+        import numpy as np
+
+        from ..ops import crc as crc_ops
+        from ..decode.score import RawFrame
+
+        m = len(q)
+        msgs = np.zeros((m, 14), dtype=np.uint8)
+        for i, bf in enumerate(q):
+            b = bf.msg[:14]
+            msgs[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+        syn112 = crc_ops.checksum_batch(msgs, 112)
+        syn56 = crc_ops.checksum_batch(np.ascontiguousarray(msgs[:, :7]), 56)
+
+        scorer = self._net_scorer()
+        now_default = self.now_ms()
+        for i, bf in enumerate(q):
+            result, info = scorer.decode_accept(
+                msgs[i], int(syn112[i]), int(syn56[i])
+            )
+            if result < 0:
+                continue
+            frame = RawFrame(
+                msg=bytes(info["msg"]), msgbits=info["msgbits"],
+                timestamp=bf.timestamp, score=0, phase=0,
+                correctedbits=info["correctedbits"], addr=info["addr"],
+                signal_power=bf.signal_level, iid=info["iid"],
+            )
+            mm = decode_frame(frame, epoch_ms=0)
+            mm.sys_timestamp_ms = bf.synthetic_ms or now_default
+            mm.remote = True
+            mm.receiver_id = bf.receiver_id
+            # quarantined feeders: divert to garbage (net_io.c:3943-3961)
+            if bf.receiver_id and self.tracker.receivers.check_bad(
+                bf.receiver_id, mm.sys_timestamp_ms
+            ):
+                mm.garbage = True
+                if self.out_garbage.clients and len(mm.msg) in (7, 14):
+                    self.out_garbage.send(
+                        beast_io.encode_frame(mm.msg, bf.timestamp, bf.signal_level)
+                    )
+                continue
+            self.handle_message(mm, raw_ts=bf.timestamp, signal=bf.signal_level)
+        self.stats_collector.cpu["net"] += (time.perf_counter() - _net_t0) * 1e3
+
     # ------------------------------------------------------------------
 
     def write_json_files(self, now: int) -> None:
@@ -274,12 +770,25 @@ class App:
         outline.json into --write-json."""
         args = self.args
         os.makedirs(args.write_json, exist_ok=True)
-        doc = json_out.generate_aircraft_json(self.tracker, now, self.messages)
-        json_out.write_json_atomic(doc, os.path.join(args.write_json, "aircraft.json"))
-        if args.write_json_gzip:
-            json_out.write_json_atomic(
-                doc, os.path.join(args.write_json, "aircraft.json.gz"), gzip_level=5
-            )
+        # with the API enabled, aircraft.json byte-joins the api buffer's
+        # prebuilt fragments instead of re-rendering every aircraft
+        # (apiGenerateAircraftJson, api.c:2027; the reference's
+        # jsonEntryPoint does exactly this)
+        snap = getattr(getattr(self, "api_server", None), "snapshot", None)
+        if snap is not None and now - snap.now <= args.write_json_every * 1000 + 1000:
+            data = json_out.aircraft_json_bytes_from_api(snap, self.messages)
+            json_out.write_bytes_atomic(data, os.path.join(args.write_json, "aircraft.json"))
+            if args.write_json_gzip:
+                json_out.write_bytes_atomic(
+                    data, os.path.join(args.write_json, "aircraft.json.gz"), gzip_level=5
+                )
+        else:
+            doc = json_out.generate_aircraft_json(self.tracker, now, self.messages)
+            json_out.write_json_atomic(doc, os.path.join(args.write_json, "aircraft.json"))
+            if args.write_json_gzip:
+                json_out.write_json_atomic(
+                    doc, os.path.join(args.write_json, "aircraft.json.gz"), gzip_level=5
+                )
         rj = json_out.generate_receiver_json(
             int(args.write_json_every * 1000), args.lat, args.lon
         )
@@ -303,14 +812,47 @@ class App:
     async def run_periodic(self) -> None:
         args = self.args
         last_json = 0.0
+        last_vrs = 0.0
+        display = None
+        if args.interactive and not args.no_interactive:
+            from .interactive import InteractiveDisplay
+
+            display = InteractiveDisplay(
+                self.tracker, ttl_s=args.interactive_ttl, metric=args.metric
+            )
         while True:
             await asyncio.sleep(0.25)
             self._last_tick = time.time()
             _bg_t0 = time.perf_counter()
+            self.drain_net_queue()
             now = self.now_ms()
             self.stats_collector.sample(self, now / 1000.0)
+            if getattr(self, "api_server", None) is not None:
+                # double-buffered query snapshot swap (apiUpdate, api.c:859)
+                _api_t0 = time.perf_counter()
+                self.api_server.update(now)
+                self.stats_collector.cpu["api"] += (time.perf_counter() - _api_t0) * 1e3
+            if display is not None:
+                display.refresh(now)
+            if self.out_vrs.clients and time.time() - last_vrs >= args.net_vrs_interval:
+                last_vrs = time.time()
+                from ..io import vrs as vrs_io
+
+                self.out_vrs.send(vrs_io.generate_vrs(self.tracker, now))
             self.tracker.remove_stale(now)
-            if args.modeac:
+            if args.modeac_auto and not args.modeac:
+                # autoset_modeac (net_io.c:3577): demod A/C only while some
+                # beast client has requested it with the '1J' command
+                want = any(
+                    o.get("modeac") for o in self.out_beast.client_opts.values()
+                )
+                if self._demod is not None and getattr(self._demod, "modeac", want) != want:
+                    self._demod.modeac = want
+            if args.modeac or (
+                args.modeac_auto
+                and self._demod is not None
+                and getattr(self._demod, "modeac", False)
+            ):
                 self.tracker.match_ac(now)
             if args.write_json and time.time() - last_json >= args.write_json_every:
                 last_json = time.time()
@@ -321,9 +863,281 @@ class App:
                     self.stats_collector.stats_json(self, now / 1000.0),
                     os.path.join(args.write_json, "stats.json"),
                 )
+                json_out.write_json_atomic(
+                    self.clients_json(now),
+                    os.path.join(args.write_json, "clients.json"),
+                )
             self.stats_collector.cpu["background"] += (
                 time.perf_counter() - _bg_t0
             ) * 1e3
+
+    def _uuid_bytes(self) -> bytes:
+        """16-byte receiver UUID (sendUUID, net_io.c:372)."""
+        if getattr(self, "_uuid_cache", None) is None:
+            import uuid as _uuid
+
+            u = None
+            if self.args.uuid_file and os.path.exists(self.args.uuid_file):
+                try:
+                    u = _uuid.UUID(open(self.args.uuid_file).read().strip())
+                except ValueError:
+                    u = None
+            self._uuid_cache = (u or _uuid.uuid4()).bytes
+        return self._uuid_cache
+
+    async def _command_socket(self, path: str) -> None:
+        """Unix command socket (handleCommandSocket, net_io.c:3718)."""
+
+        async def handle(reader, writer):
+            try:
+                while True:
+                    line = await reader.readline()
+                    if not line:
+                        break
+                    toks = line.decode("latin1", "replace").split()
+                    if not toks:
+                        continue
+                    if toks[0] == "deleteTrace" and len(toks) >= 4:
+                        try:
+                            hexid = int(toks[1], 16)
+                            t_from, t_to = int(toks[2]), int(toks[3])
+                        except ValueError:
+                            continue
+                        a = self.tracker.aircraft.get(hexid)
+                        if a is not None and getattr(a, "trace", None) is not None:
+                            a.trace.delete_range(t_from * 1000, t_to * 1000)
+                        log.warning("cmd.sock: deleteTrace %06x %d %d", hexid, t_from, t_to)
+                    else:
+                        log.warning("cmd.sock: unrecognized command %r", toks[0])
+            except Exception:
+                pass
+            finally:
+                try:
+                    writer.close()
+                except Exception:
+                    pass
+
+        try:
+            server = await asyncio.start_unix_server(handle, path=path)
+            self.net.servers.append(server)
+        except (OSError, NotImplementedError) as e:
+            log.warning("cmd.sock unavailable: %s", e)
+
+
+    def clients_json(self, now: int) -> dict:
+        """clients.json: connected-client inventory (json_out.c:2247)."""
+        clients = []
+        for name, svc in self.net.outputs.items():
+            for w in svc.clients:
+                peer = w.get_extra_info("peername")
+                opts = svc.client_opts.get(id(w), {})
+                clients.append(
+                    {
+                        "service": name,
+                        "host": (peer[0] if peer else "?"),
+                        "port": (peer[1] if peer else 0),
+                        "modeac": bool(opts.get("modeac")),
+                    }
+                )
+        return {"now": now / 1000.0, "clients": clients,
+                "clients_shed": sum(s.clients_shed for s in self.net.outputs.values())}
+
+    async def setup_net(self) -> None:
+        args = self.args
+        if not (args.net or args.net_only):
+            return
+        # --net-bind-address for every listener
+        import functools as _ft
+
+        self.net.listen_output = _ft.partial(self.net.listen_output, host=args.net_bind_address) \
+            if args.net_bind_address != "0.0.0.0" else self.net.listen_output
+        self.net.listen_input = _ft.partial(self.net.listen_input, host=args.net_bind_address) \
+            if args.net_bind_address != "0.0.0.0" else self.net.listen_input
+        if args.net_ro_port:
+            for _p in args.net_ro_port:
+                await self.net.listen_output(self.out_raw, _p)
+        if args.net_bo_port:
+            for _p in args.net_bo_port:
+                await self.net.listen_output(self.out_beast, _p)
+        if args.net_sbs_port:
+            for _p in args.net_sbs_port:
+                await self.net.listen_output(self.out_sbs, _p)
+            base = args.net_sbs_port[0]
+            if base % 10 == 5:
+                await self.net.listen_output(self.out_sbs_replay, base + 1)
+                await self.net.listen_output(self.out_sbs_mlat, base + 2)
+                await self.net.listen_output(self.out_sbs_prio, base + 3)
+                await self.net.listen_output(self.out_sbs_jaero, base + 4)
+        if args.net_json_port:
+            for _p in args.net_json_port:
+                await self.net.listen_output(self.out_json, _p)
+        if args.net_garbage_port:
+            for _p in args.net_garbage_port:
+                await self.net.listen_output(self.out_garbage, _p)
+        if args.net_bi_port:
+            await self.net.listen_input(
+                InputService(
+                    "beast_in", self._beast_input_factory(),
+                    ping=args.net_ingest, reject_ms=args.ping_reject,
+                    on_rtt=self.stats_collector.note_rtt,
+                ), args.net_bi_port[0]
+            )
+            for _p in args.net_bi_port[1:]:
+                await self.net.listen_input(
+                    InputService(
+                        "beast_in", self._beast_input_factory(),
+                        ping=args.net_ingest, reject_ms=args.ping_reject,
+                        on_rtt=self.stats_collector.note_rtt,
+                    ), _p
+                )
+        if args.net_ri_port:
+            await self.net.listen_input(
+                InputService("raw_in", self._raw_input_factory()), args.net_ri_port[0]
+            )
+            for _p in args.net_ri_port[1:]:
+                await self.net.listen_input(
+                    InputService("raw_in", self._raw_input_factory()), _p
+                )
+        if args.net_uat_in_port:
+            await self.net.listen_input(
+                InputService("uat_in", self._uat_input_factory()),
+                args.net_uat_in_port[0],
+            )
+        if args.net_uat_replay_port:
+            for _p in args.net_uat_replay_port:
+                await self.net.listen_output(self.out_uat_replay, _p)
+        if args.net_vrs_port:
+            for _p in args.net_vrs_port:
+                await self.net.listen_output(self.out_vrs, _p)
+        if args.net_sbs_in_port:
+            await self.net.listen_input(
+                InputService("sbs_in", self._sbs_input_factory()),
+                args.net_sbs_in_port[0],
+            )
+            if args.net_sbs_in_port[0] % 10 == 5:
+                await self.net.listen_input(
+                    InputService("sbs_in_mlat", self._sbs_input_factory(Source.MLAT)),
+                    args.net_sbs_in_port[0] + 2,
+                )
+                await self.net.listen_input(
+                    InputService("sbs_in_prio", self._sbs_input_factory(Source.PRIO)),
+                    args.net_sbs_in_port[0] + 3,
+                )
+                await self.net.listen_input(
+                    InputService("sbs_in_jaero", self._sbs_input_factory(Source.JAERO)),
+                    args.net_sbs_in_port[0] + 4,
+                )
+        if args.net_sbs_jaero_port:
+            for _p in args.net_sbs_jaero_port:
+                await self.net.listen_output(self.out_sbs_jaero, _p)
+        if args.net_sbs_jaero_in_port:
+            for _p in args.net_sbs_jaero_in_port:
+                await self.net.listen_input(
+                    InputService("sbs_in_jaero", self._sbs_input_factory(Source.JAERO)),
+                    _p,
+                )
+        if args.net_ai_port:
+            await self.net.listen_input(
+                InputService("asterix_in", self._asterix_input_factory()),
+                args.net_ai_port[0],
+            )
+        if args.net_ao_port:
+            for _p in args.net_ao_port:
+                await self.net.listen_output(self.out_asterix, _p)
+        if args.net_beast_reduce_out_port:
+            for _p in args.net_beast_reduce_out_port:
+                await self.net.listen_output(self.out_beast_reduce, _p)
+        if args.write_json:
+            os.makedirs(args.write_json, exist_ok=True)
+            await self._command_socket(os.path.join(args.write_json, "cmd.sock"))
+        if args.net_api_port:
+            from ..io.api import ApiServer
+
+            self.api_server = ApiServer(self)
+            port = args.net_api_port
+            if isinstance(port, str) and not port.isdigit():
+                # a path: unix-socket listener (api.c:1967)
+                await self.api_server.listen_unix(port)
+            else:
+                await self.api_server.listen(int(port))
+        # shadow locally so a non-default delay applies to every connector
+        Connector = _ft.partial(  # noqa: F841 (shadows the module import)
+            globals()["Connector"], reconnect_delay=args.net_connector_delay
+        )
+        for spec in args.net_connector:
+            parts = spec.split(",")
+            host, port, proto = parts[0], int(parts[1]), parts[2]
+            if proto == "beast_reduce_plus_out":
+                # UUID + high-res-ping handshake on connect
+                # (net_io.c:372,1064-1066,4897)
+                async def _hello(w, app=self):
+                    w.write(b"\x1a\xe4" + app._uuid_bytes() + b"\x1aWO")
+
+                self.net.add_connector(
+                    Connector(host, port, output=self.out_beast_reduce, on_connect=_hello)
+                )
+                continue
+            if proto in ("sbs_in_mlat", "sbs_in_jaero", "sbs_in_prio"):
+                src = {
+                    "sbs_in_mlat": Source.MLAT,
+                    "sbs_in_jaero": Source.JAERO,
+                    "sbs_in_prio": Source.PRIO,
+                }[proto]
+                self.net.add_connector(
+                    Connector(host, port, input_factory=self._sbs_input_factory(src))
+                )
+                continue
+            if proto in ("beast_in",):
+                self.net.add_connector(
+                    Connector(host, port, input_factory=self._beast_input_factory())
+                )
+            elif proto in ("raw_in",):
+                self.net.add_connector(
+                    Connector(host, port, input_factory=self._raw_input_factory())
+                )
+            elif proto == "uat_in":
+                self.net.add_connector(
+                    Connector(host, port, input_factory=self._uat_input_factory())
+                )
+            elif proto == "gpsd_in":
+                self.net.add_connector(
+                    Connector(
+                        host, port,
+                        input_factory=self._gpsd_input_factory(),
+                        on_connect=self._gpsd_watch,
+                    )
+                )
+            elif proto == "planefinder_in":
+                self.net.add_connector(
+                    Connector(host, port, input_factory=self._planefinder_input_factory())
+                )
+            elif proto == "vrs_out":
+                self.net.add_connector(Connector(host, port, output=self.out_vrs))
+            elif proto == "beast_out":
+                self.net.add_connector(Connector(host, port, output=self.out_beast))
+            elif proto in ("beast_reduce_out", "beast_reduce_plus_out"):
+                self.net.add_connector(
+                    Connector(host, port, output=self.out_beast_reduce)
+                )
+            elif proto == "sbs_in":
+                self.net.add_connector(
+                    Connector(host, port, input_factory=self._sbs_input_factory())
+                )
+            elif proto == "asterix_in":
+                self.net.add_connector(
+                    Connector(host, port, input_factory=self._asterix_input_factory())
+                )
+            elif proto == "asterix_out":
+                self.net.add_connector(Connector(host, port, output=self.out_asterix))
+            elif proto == "raw_out":
+                self.net.add_connector(Connector(host, port, output=self.out_raw))
+            elif proto == "sbs_out":
+                self.net.add_connector(Connector(host, port, output=self.out_sbs))
+            elif proto == "json_out":
+                self.net.add_connector(Connector(host, port, output=self.out_json))
+            else:
+                log.warning("unsupported connector protocol: %s", proto)
+
 
     # ------------------------------------------------------------------
 
@@ -392,6 +1206,7 @@ class App:
             asyncio.get_event_loop().set_default_executor(
                 _cf.ThreadPoolExecutor(max_workers=self.args.decode_threads)
             )
+        await self.setup_net()
         self._install_signals()
         self._start_watchdog()
         if self.args.auto_exit > 0:
@@ -415,15 +1230,26 @@ class App:
         try:
             if self.args.device_type == "ifile":
                 await self.run_ifile()
+                if self.args.net or self.args.net_only:
+                    await asyncio.sleep(0.2)  # let outputs flush
+            elif self.args.net or self.args.net_only:
+                await self._exit_event.wait()
             else:
-                log.error("no source: use --device-type ifile")
+                log.error("no source: use --device-type ifile or --net-only")
                 return 1
         finally:
             # ordered shutdown (readsb.c:2917-3011): stop periodic work,
-            # final aircraft.json so short runs / clean exits leave a
-            # current snapshot even if no periodic tick completed
+            # drain pending decode, flush, close
             self._exiting = True
+            if (
+                getattr(self, "api_server", None) is not None
+                and self.args.api_shutdown_delay > 0
+            ):
+                # keep serving in-flight API queries; new ones get 503
+                self.api_server.draining = True
+                await asyncio.sleep(self.args.api_shutdown_delay)
             periodic.cancel()
+            self.drain_net_queue()
             if self.args.write_json:
                 os.makedirs(self.args.write_json, exist_ok=True)
                 doc = json_out.generate_aircraft_json(
@@ -432,6 +1258,9 @@ class App:
                 json_out.write_json_atomic(
                     doc, os.path.join(self.args.write_json, "aircraft.json")
                 )
+            for svc in self.net.outputs.values():
+                svc.flush()
+            await self.net.close()
             if self.args.stats:
                 self.print_stats()
         return 0
@@ -487,9 +1316,13 @@ def main(argv=None) -> int:
 
 
 def viewadsb_main(argv=None) -> int:
-    """viewadsb connects to a Beast source: the network engine and the
-    interactive display are ROADMAP item 8b of the port."""
-    raise NotImplementedError("viewadsb: the network engine is ROADMAP item 8b of the port")
+    """viewadsb: readsb_tpu runs `--net-only --interactive --net-connector
+    127.0.0.1,30005,beast_in`, which its rule sends through the columnar
+    drain, ROADMAP item 8d of the port."""
+    raise NotImplementedError(
+        "viewadsb: its Beast-only --net-only command takes the columnar bulk "
+        "path, which is ROADMAP item 8d of the port"
+    )
 
 
 if __name__ == "__main__":

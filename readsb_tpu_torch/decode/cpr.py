@@ -166,3 +166,19 @@ def decode_relative(
     if abs(rlon - reflon) > dlon / 2:
         return None
     return rlat, rlon
+
+
+def encode_cpr(lat: float, lon: float, odd: int, surface: bool = False) -> tuple[int, int]:
+    """Encode a position into 17-bit CPR lat/lon fields.
+
+    Used to synthesize DF18 from UAT MDBs (the inverse of the decoders
+    above; matches uat2esnt.c:217-239 — surface scales by 2^19 and
+    truncates to 17 bits, airborne scales by 2^17).
+    """
+    nb_pow = 1 << 19 if surface else 1 << 17
+    dlat = 360.0 / (59 if odd else 60)
+    yz = int(math.floor(nb_pow * _mod_f(lat, dlat) / dlat + 0.5))
+    rlat = dlat * (yz / nb_pow + math.floor(lat / dlat))
+    dlon = 360.0 / _n_func(rlat, odd)
+    xz = int(math.floor(nb_pow * _mod_f(lon, dlon) / dlon + 0.5))
+    return yz & 0x1FFFF, xz & 0x1FFFF

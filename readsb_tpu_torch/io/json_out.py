@@ -231,3 +231,34 @@ def generate_receiver_json(
         o["lat"] = round(lat, 2)
         o["lon"] = round(lon, 2)
     return o
+
+
+def aircraft_json_bytes_from_api(snap, messages: int) -> bytes:
+    """aircraft.json assembled from the API snapshot's prebuilt fragments
+    (apiGenerateAircraftJson, api.c:2027-2100): when the API is enabled,
+    the per-aircraft JSON objects are rendered once per apiUpdate and the
+    json writer only byte-joins them — the reference's design for not
+    paying the render twice per tick."""
+    head = json.dumps(
+        {"now": round(snap.now / 1000.0, 1), "messages": messages},
+        separators=(",", ":"),
+    )[:-1].encode() + b',"aircraft":['
+    return head + b",".join(snap.frag) + b"]}"
+
+
+def write_bytes_atomic(data: bytes, path: str, gzip_level: int = 0) -> None:
+    """tmpfile + rename for pre-rendered bytes."""
+    d = os.path.dirname(path) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        if gzip_level:
+            data = gzip.compress(data, gzip_level)
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.rename(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise

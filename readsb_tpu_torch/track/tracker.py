@@ -25,7 +25,10 @@ updates follow the reference's acceptance rules:
 
 A copy of readsb_tpu's dict tracker, kept bit-equal to it, without its
 history traces (keep_traces, json_trace_interval): those come with ROADMAP
-item 8c and the device arena with item 10.
+item 8c and the device arena with item 10.  One fault of readsb_tpu is not
+copied: when the altitude score is exhausted, the altitude stays valid
+only if the *reliable* position came from JAERO (pos_reliable_valid, as
+readsb gates it, track.c:1798-1800), not the latest position.
 """
 
 from __future__ import annotations
@@ -221,6 +224,8 @@ class Aircraft:
     surface_cpr_allow_ac_rel: bool = False
     lat_reliable: float = 0.0
     lon_reliable: float = 0.0
+    # validity of the reliable position above (pos_reliable_valid, track.h)
+    pos_reliable_valid: Validity = dataclasses.field(default_factory=Validity)
     pos_surface: bool = False
     position_valid: Validity = dataclasses.field(default_factory=Validity)
     pos_reliable_odd: float = 0.0
@@ -560,7 +565,8 @@ class Tracker:
             a.alt_reliable -= good_crc + 1
             if a.alt_reliable <= 0:
                 a.alt_reliable = 0
-                if a.position_valid.source != Source.JAERO:
+                # gated on the reliable position's source (track.c:1798-1800)
+                if a.pos_reliable_valid.source != Source.JAERO:
                     a.baro_alt_valid.source = Source.INVALID
             return
         if self._accept(a, a.baro_alt_valid, src, now):
@@ -1374,6 +1380,7 @@ class Tracker:
             # reliable-position snapshot (setPosition, track.c:1172-1182)
             a.lat_reliable = lat
             a.lon_reliable = lon
+            a.pos_reliable_valid = dataclasses.replace(a.position_valid)
             a.surface_cpr_allow_ac_rel = True
 
         # polar range histogram vs our own location (track.c:252-300)
@@ -1479,6 +1486,7 @@ class Tracker:
             ):
                 v.expire(now)
             a.position_valid.expire(now, TRACK_EXPIRE_LONG)
+            a.pos_reliable_valid.expire(now, TRACK_EXPIRE_LONG)
             a.cpr_odd.valid.expire(now)
             a.cpr_even.valid.expire(now)
         for addr in dead:

@@ -49,6 +49,7 @@ from readsb_tpu_torch.synth import (
     quantize_sc16,
     quantize_uc8,
 )
+from tests.test_torch_track import aircraft_state
 
 # the suite runs in several worker processes that share the cores
 torch.set_num_threads(1)
@@ -93,7 +94,7 @@ def _results(app, jo, so):
         "counters": {k: v for k, v in vars(t).items()  # readsb_tpu's trace setting aside
                      if isinstance(v, (int, float)) and not isinstance(v, bool)
                      and k != "json_trace_interval"},
-        "aircraft": repr(list(t.aircraft.values())),
+        "aircraft": aircraft_state(t.aircraft.values()),
         "modeac": [x.tolist() for x in (t.modeac_count, t.modeac_lastcount, t.modeac_match,
                                         t.modeac_age)],
         "demod": (app._demod.scan_global, st.preambles, st.rejected_bad,

@@ -7,7 +7,9 @@ the same options, writes aircraft.json, receiver.json and stats.json and
 exits 0, and its aircraft.json equals the in-process run's apart from
 `now`.  Without that variable and without a card it exits non-zero and
 writes nothing.  Each option whose layer is not ported raises
-NotImplementedError naming its ROADMAP item, before any work starts.
+NotImplementedError naming its ROADMAP item, before any work starts; the
+network options parse, and raise naming item 8d only where readsb_tpu's
+rule picks its columnar drain.
 No test here runs readsb_tpu's demodulator.
 """
 
@@ -25,6 +27,7 @@ import torch
 
 from readsb_tpu.app import main as jax_main
 from readsb_tpu.app.config import build_parser as jax_build_parser
+from readsb_tpu.app.config import parse_args as jax_parse_args
 from readsb_tpu_torch.app import main
 from readsb_tpu_torch.app.config import build_parser
 from readsb_tpu_torch.synth import build_traffic_capture
@@ -142,14 +145,27 @@ DEFERRED = [
 
 @pytest.mark.parametrize("extra,item", DEFERRED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_deferred_options_raise_naming_their_item(extra, item, capture, monkeypatch):
+    """An option of a layer still to port raises naming its item.  The
+    options of item 8b are ported: beside --net they parse, and raise
+    naming item 8d exactly where readsb_tpu's rule sends network input
+    through its columnar drain; with --no-net-bulk-drain they parse."""
     monkeypatch.setenv("READSB_TPU_PLATFORM", "cpu")
     argv = ["--device-type", "ifile", "--ifile", capture, *extra]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
-        main.main(argv)
+    if item != "8b":
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
+            main.main(argv)
+        return
+    for net in (["--net"], ["--net", "--no-net-bulk-drain"]):
+        if jax_main.App._bulk_drain_enabled(jax_parse_args(argv + net)):
+            with pytest.raises(NotImplementedError, match=r"ROADMAP item 8d\b.*--no-net-bulk-drain"):
+                main.parse_args(argv + net)
+        else:
+            assert main.parse_args(argv + net).net
 
 
 def test_viewadsb_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8b\b"):
+    """viewadsb's Beast-only --net-only command takes the columnar drain."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8d\b"):
         main.viewadsb_main([])
 
 

@@ -243,13 +243,31 @@ def _frame(cls, t_s, msg, addr, k):
                phase=4 + k % 5, correctedbits=0, addr=addr, signal_power=0.01 * (1 + k % 50))
 
 
+# The port's Aircraft has one field that readsb_tpu's lacks: the validity
+# of the reliable position.  The port gates the altitude on its source when
+# the altitude score is exhausted, as readsb does (track.c:1798-1800);
+# readsb_tpu gates on the latest position's source.  Only JAERO input can
+# tell the two apart (test_jaero_altitude_gate_reads_the_reliable_position).
+PORT_ONLY_FIELDS = ("pos_reliable_valid",)
+
+
+def aircraft_state(aircraft) -> str:
+    """repr() of the aircraft, each as its dataclass repr without the
+    port's extra field."""
+    return "[%s]" % ", ".join(
+        "%s(%s)" % (type(a).__name__, ", ".join(
+            f"{f.name}={getattr(a, f.name)!r}" for f in dataclasses.fields(a)
+            if f.repr and f.name not in PORT_ONLY_FIELDS))
+        for a in aircraft)
+
+
 def _counters(t):
     """Every number the tracker keeps, and each aircraft's whole state
     (readsb_tpu's trace setting aside: the port's tracker has no traces)."""
     out = {k: v for k, v in vars(t).items() if isinstance(v, (int, float))
            and not isinstance(v, bool) and k != "json_trace_interval"}
     out["pos_by_type"] = dict(t.pos_by_type)
-    out["aircraft"] = repr(list(t.aircraft.values()))
+    out["aircraft"] = aircraft_state(t.aircraft.values())
     return out
 
 
@@ -297,8 +315,11 @@ def test_tracker_replay_equals_reference(seed, receiver):
 
 
 def test_aircraft_fields_match_reference():
-    """The port's Aircraft and ModesMessage carry the reference's fields."""
-    assert [f.name for f in dataclasses.fields(tracker.Aircraft)] == [
+    """The port's Aircraft and ModesMessage carry the reference's fields;
+    the port's Aircraft has the validity of its reliable position too."""
+    port = [f.name for f in dataclasses.fields(tracker.Aircraft)]
+    assert set(PORT_ONLY_FIELDS) <= set(port)
+    assert [f for f in port if f not in PORT_ONLY_FIELDS] == [
         f.name for f in dataclasses.fields(jax_tracker.Aircraft)]
     assert [f.name for f in dataclasses.fields(fields.ModesMessage)] == [
         f.name for f in dataclasses.fields(jax_fields.ModesMessage)]
