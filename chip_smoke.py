@@ -34,10 +34,27 @@ and then the network layer:
                    serves Beast, raw and SBS to clients that connect
                    before the replay, and the /re-api server; its lanes'
                    bytes, its API answers and aircraft.json equal the same
-                   run on the CPU; an aggregator App (--net-only
-                   --no-net-bulk-drain) takes the feeder's Beast lane
-                   through --net-connector and holds its aircraft; 200
-                   timed ?all queries and the host split
+                   run on the CPU; two aggregator Apps take the feeder's
+                   Beast lane through --net-connector, one on the scalar
+                   drain (--no-net-bulk-drain) and one on the columnar
+                   drain (the default), and hold its aircraft; 200 timed
+                   ?all queries and the host split
+
+and then the aggregator's device parts:
+
+  cpr              the three device CPR cores (ops/cpr_device.py) on the
+                   card against the CPU, bit for bit, over 32768 pairs per
+                   mode
+  agg              an aggregator App (--net-only --lat --lon) fed 240,000
+                   Beast frames of 10,000 aircraft as wire bytes through
+                   BeastIn.feed (the columnar drain), with and without
+                   --device-arena: the arena's state and device CPR fixes
+                   on the card equal a CPU arena's over the same updates,
+                   aircraft.json with the arena equals it without, every
+                   aircraft at its encoded position; frames/s, the arena's
+                   per-update device ms, rounds, launches and readback,
+                   the per-tick sweep and materialize_arena, and the
+                   card's idle share
 
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
@@ -602,6 +619,9 @@ NET_RECEIVERS = 8
 NET_S = 1.0
 NET_QUERIES = 200
 NET_TIMEOUT = 60.0  # seconds for any one network read or await
+# aircraft.json keys that readsb_tpu's columnar drain does not produce
+COLUMNAR_NOT_OWNED = ("type", "category", "version", "nac_p", "nac_v", "sil", "sil_type",
+                      "alert", "spi")
 SBS_CLOCK_FIELDS = slice(6, 10)  # SBS fields 7-10: the message's and the line's date and time
 
 
@@ -673,16 +693,21 @@ async def net_run(paths: list[str], device: str, d: str, aggregate: bool) -> dic
     for name, port in (("beast", bo), ("raw", ro), ("sbs", sbs)):
         clients[name] = await asyncio.wait_for(
             asyncio.open_connection("127.0.0.1", port), NET_TIMEOUT)
-    aggregator = agg_task = None
+    aggregators, agg_tasks = {}, []
     if aggregate:
-        aggregator = app_main.App(app_main.parse_args([
-            "--net-only", "--no-net-bulk-drain", "--net-connector", f"127.0.0.1,{bo},beast_in",
-            "--write-json", os.path.join(d, "aggregator"), "--write-json-every", "0.25"]))
-        agg_task = asyncio.ensure_future(aggregator.amain())
-    res = {"feeder": feeder, "aggregator": aggregator}
+        # the scalar drain, and readsb_tpu's default for this command: the
+        # columnar drain
+        for name, drain in (("aggregator", ["--no-net-bulk-drain"]), ("columnar", [])):
+            aggregators[name] = app_main.App(app_main.parse_args([
+                "--net-only", *drain, "--net-connector", f"127.0.0.1,{bo},beast_in",
+                "--write-json", os.path.join(d, name), "--write-json-every", "0.25"]))
+            agg_tasks.append(asyncio.ensure_future(aggregators[name].amain()))
+        check(aggregators["aggregator"].bulk is None and aggregators["columnar"].bulk is not None,
+              "the two aggregators did not take the scalar and the columnar drain")
+    res = {"feeder": feeder, **aggregators}
     try:
         async def connected():
-            while (len(feeder.out_beast.clients) < 1 + aggregate or not feeder.out_raw.clients
+            while (len(feeder.out_beast.clients) < 1 + 2 * aggregate or not feeder.out_raw.clients
                    or not feeder.out_sbs.clients):
                 await asyncio.sleep(0.01)
 
@@ -718,23 +743,27 @@ async def net_run(paths: list[str], device: str, d: str, aggregate: bool) -> dic
                 res["api_ms"] = sorted(lat)
         finally:
             w.close()
-        if aggregate:
-            async def aggregated():  # every frame read off the feeder's Beast lane
-                while len(aggregator._net_queue) + aggregator.remote_modes < feeder.messages:
-                    await asyncio.sleep(0.01)
+        def taken(agg):  # frames read off the feeder's Beast lane
+            return (len(agg._net_queue) + sum(len(b["ts"]) for b in agg._net_cols_queue)
+                    + agg.remote_modes)
 
-            await asyncio.wait_for(aggregated(), NET_TIMEOUT)
+        async def aggregated():
+            while any(taken(agg) < feeder.messages for agg in aggregators.values()):
+                await asyncio.sleep(0.01)
+
+        await asyncio.wait_for(aggregated(), NET_TIMEOUT)
     finally:
         if feeder.api_server is not None and feeder.api_server.server is not None:
             feeder.api_server.server.close()
-        if aggregator is not None:
-            aggregator._exit_event.set()
-            await asyncio.wait_for(agg_task, NET_TIMEOUT)
+        for agg in aggregators.values():
+            agg._exit_event.set()
+        for task in agg_tasks:
+            await asyncio.wait_for(task, NET_TIMEOUT)
         for _, w in clients.values():
             w.close()
     res["aircraft.json"] = json.load(open(os.path.join(out_dir, "aircraft.json")))
-    if aggregate:
-        res["aggregator.json"] = json.load(open(os.path.join(d, "aggregator", "aircraft.json")))
+    for name in aggregators:
+        res[name + ".json"] = json.load(open(os.path.join(d, name, "aircraft.json")))
     return res
 
 
@@ -798,6 +827,21 @@ def net_phase(card: str) -> dict[str, int]:
               strip(card_run["aggregator.json"]), strip(card_run["aircraft.json"])))
     check(agg.remote_modes == len(feeder.sent),
           f"the aggregator took {agg.remote_modes} of {len(feeder.sent)} frames")
+    # readsb_tpu's columnar drain keeps the field groups it owns
+    # (app/bulk_drain.py): it leaves out what the scalar decoder takes from
+    # ident and position frames beyond them, and serves the callsign
+    # without its padding
+    def owned(doc):
+        return {h: {k: (v.rstrip() if k == "flight" else v) for k, v in a.items()
+                    if k not in COLUMNAR_NOT_OWNED}
+                for h, a in strip(doc).items()}
+
+    col = card_run["columnar"]
+    check(owned(card_run["columnar.json"]) == owned(card_run["aircraft.json"]),
+          "the columnar aggregator's aircraft differ from the feeder's: " + first_diff(
+              owned(card_run["columnar.json"]), owned(card_run["aircraft.json"])))
+    check(col.remote_modes == len(feeder.sent),
+          f"the columnar aggregator took {col.remote_modes} of {len(feeder.sent)} frames")
     wall, msgs = card_run["wall"], feeder.messages
     lat = card_run["api_ms"]
     log(f"net feeder: {NET_RECEIVERS} uc8 receivers x {NET_S} s, {len(scene)} scene aircraft; "
@@ -815,13 +859,360 @@ def net_phase(card: str) -> dict[str, int]:
         f"(host clock) on {card}")
     split = ", ".join(f"{k} {v:.1f}" for k, v in feeder.stats_collector.cpu.items())
     agg_split = ", ".join(f"{k} {v:.1f}" for k, v in agg.stats_collector.cpu.items())
+    col_split = ", ".join(f"{k} {v:.1f}" for k, v in col.stats_collector.cpu.items())
     log(f"net host split, ms (stats_collector.cpu): feeder {split}; aggregator {agg_split}; "
+        f"columnar aggregator {col_split}; "
         f"the CPU run's replay wall {cpu_run['wall']:.3f} s on {card}")
-    log(f"net aggregator: {agg.remote_modes} frames over --net-connector beast_in, "
-        f"{len(card_run['aggregator.json']['aircraft'])} aircraft == the feeder's "
-        f"(seen, seen_pos, rssi aside) on {card}")
+    log(f"net aggregators: {agg.remote_modes} frames over --net-connector beast_in to each; "
+        f"the scalar drain's {len(card_run['aggregator.json']['aircraft'])} aircraft == the "
+        f"feeder's (seen, seen_pos, rssi aside), the columnar drain's "
+        f"{len(card_run['columnar.json']['aircraft'])} == the feeder's on the keys it owns on "
+        f"{card}")
     tmp.cleanup()
     return launches
+
+
+# the aggregator phase: 10,000 aircraft, 24 Beast frames each (12 DF17
+# airborne positions of both CPR parities, 3 velocities, 3 idents, 3 DF5,
+# 3 DF11), each frame behind a 0xE8 synthetic-time prefix at epoch ms,
+# fed as wire bytes in 64 KiB chunks to an in-process App (--net-only
+# --lat --lon), which takes the columnar drain
+AGG_AIRCRAFT = 10_000
+AGG_PER_AIRCRAFT = 24
+AGG_FRAMES_PER_MS = 4  # 240,000 frames over 60 s of synthetic time
+AGG_CHUNK = 65536
+AGG_TICK_CHUNKS = 8  # a maintenance tick (materialize, sweep) every 8 chunks
+AGG_LAT, AGG_LON = 45.0, -95.0  # the receiver; the aircraft fill a 6 x 6 degree box around it
+AGG_ARGV = ["--net-only", "--quiet", "--lat", str(AGG_LAT), "--lon", str(AGG_LON)]
+# the keys of readsb_tpu's tests/test_bulk_app.py::test_device_arena_app_equivalence
+AGG_KEYS = ("hex", "flight", "alt_baro", "gs", "track", "baro_rate", "squawk", "lat",
+            "lon", "seen", "messages")
+CPR_FUZZ = 32768  # pairs per mode, card against CPU
+AGG_DEVICE = "cuda"
+
+
+def agg_track(i: int, n_ac: int) -> tuple[float, float]:
+    """Where the aircraft of frame `i` is at that frame's time: due north
+    at 1e-6 degrees per ms (216 kt, as its velocity frames say)."""
+    ac = i % n_ac
+    return (AGG_LAT - 3.0 + (ac % 100) * 0.06 + 1e-6 * (i / AGG_FRAMES_PER_MS),
+            AGG_LON - 3.0 + (ac // 100) * 0.06)
+
+
+def agg_wire(job: tuple) -> bytes:
+    """Beast wire bytes of frames lo..hi-1 of the aggregator's stream.
+    Runs in a worker process."""
+    from readsb_tpu_torch import synth
+
+    lo, hi, n_ac = job
+    out = []
+    for i in range(lo, hi):
+        ac, seq = i % n_ac, i // n_ac
+        addr = 0xA00000 + ac
+        k = seq % 8
+        if k < 4:
+            lat, lon = agg_track(i, n_ac)
+            msg = synth.encode_df17_position(addr, lat, lon, 20000 + (ac % 300) * 100, seq & 1)
+        elif k == 4:
+            msg = synth.encode_df17_velocity(addr, 216, 0, 64 * (ac % 9 - 4))
+        elif k == 5:
+            msg = synth.encode_df17_ident(addr, f"AGG{ac:05d}")
+        elif k == 6:
+            msg = synth.encode_df5(addr, 0x1000 + (ac % 1000) * 4 % 0x7777)
+        else:
+            msg = synth.encode_df11(addr)
+        out.append(beast_io.encode_synthetic_ts(APP_EPOCH_MS + i // AGG_FRAMES_PER_MS)
+                   + beast_io.encode_frame(msg, i * 3000, 0.2 + (i % 20) * 0.01))
+    return b"".join(out)
+
+
+def agg_stream(n_ac: int, per_ac: int) -> list[bytes]:
+    """The aggregator's stream as 64 KiB chunks, rendered in worker processes."""
+    n = n_ac * per_ac
+    step = -(-n // 64)
+    jobs = [(lo, min(n, lo + step), n_ac) for lo in range(0, n, step)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                                                mp_context=ctx) as pool:
+        wire = b"".join(pool.map(agg_wire, jobs))
+    return [wire[i:i + AGG_CHUNK] for i in range(0, len(wire), AGG_CHUNK)]
+
+
+def sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def agg_replay(chunks: list[bytes], device: str, arena: bool, hooks=None):
+    """One aggregator App fed the chunks through BeastIn.feed (the
+    cols_mode path, drain_cols), with a maintenance tick (drain,
+    materialize, materialize_arena, the arena's sweep) every
+    AGG_TICK_CHUNKS chunks and at the end.  The App's clock reads the
+    stream's synthetic time.  Returns (app, host seconds)."""
+    app = make_app(AGG_ARGV + (["--device-arena"] if arena else []), device)
+    check((app.arena is not None) == arena and app.bulk is not None,
+          "the aggregator did not take the columnar drain (and the arena)")
+    if hooks is not None:
+        hooks(app)
+    conn = app._beast_input_factory()()
+    check(conn.cols_mode, "the aggregator's Beast input is not in columnar mode")
+    clock = [APP_EPOCH_MS]
+
+    def now():
+        return max(clock[0], int(conn.deframer.synthetic_ms))
+
+    app.now_ms = now
+
+    def tick():
+        app.drain_net_queue()
+        t = now()
+        app._materialize(t)
+        if app.arena is not None:
+            app.arena.sweep(t)
+
+    async def pump():
+        for k, chunk in enumerate(chunks):
+            await conn.feed(chunk)
+            if (k + 1) % AGG_TICK_CHUNKS == 0:
+                tick()
+        tick()
+
+    sync(device)
+    t0 = time.perf_counter()
+    asyncio.run(pump())
+    sync(device)
+    return app, time.perf_counter() - t0
+
+
+def cpr_phase(card: str) -> None:
+    """The three device CPR cores on the card against the CPU, bit for bit,
+    over CPR_FUZZ random pairs per mode (surface and relative at seven
+    reference points)."""
+    from readsb_tpu_torch.ops import cpr_device
+
+    rng = np.random.default_rng(23)
+    n = CPR_FUZZ
+    elat = rng.integers(0, 1 << 17, n)
+    elon = rng.integers(0, 1 << 17, n)
+    olat = np.where(rng.random(n) < 0.5,
+                    np.clip(elat + rng.integers(-600, 600, n), 0, (1 << 17) - 1),
+                    rng.integers(0, 1 << 17, n))
+    olon = np.clip(elon + rng.integers(-600, 600, n), 0, (1 << 17) - 1)
+    fflag = rng.integers(0, 2, n)
+    surface = rng.integers(0, 2, n)
+    cols = [torch.from_numpy(np.asarray(a, np.int32)) for a in (elat, elon, olat, olon, fflag)]
+
+    def same(fn, what):
+        a = fn([c.to(DEV) for c in cols])
+        b = fn(cols)
+        for k in b:
+            check(torch.equal(a[k].cpu(), b[k]), f"{what}: {k} on the card differs from the CPU")
+        return int(b["ok"].sum())
+
+    oks = [same(lambda c: cpr_device.decode_airborne_core(*c), "airborne")]
+    refs = [(-60.0, 10.0), (-44.9, -170.0), (0.0, 0.0), (30.0, 100.0), (46.0, 5.0),
+            (52.0, -1.0), (80.0, 179.5)]
+    surf_ok = rel_ok = 0
+    for reflat, reflon in refs:
+        q = cpr_device.surface_quadrant_consts(reflat)
+        surf_ok += same(lambda c: cpr_device.decode_surface_core(
+            *c, q["zneg"], q["zpos"], q["t0"], q["t1"]), f"surface at {reflat}")
+        consts = cpr_device.relative_consts(reflat, reflon)
+        s = torch.from_numpy(np.asarray(surface, np.int32))
+
+        def rel(c):
+            tabs = cpr_device.relative_consts_on(consts, c[0].device)
+            return cpr_device.decode_relative_core(c[0], c[1], c[4], s.to(c[0].device), tabs)
+
+        rel_ok += same(rel, f"relative at {reflat}")
+    log(f"cpr: the airborne, surface and relative cores on the card == CPU over {n} pairs "
+        f"each (surface and relative at {len(refs)} reference points); accepted: airborne "
+        f"{oks[0]}, surface {surf_ok}, relative {rel_ok} on {card}")
+
+
+def agg_phase(card: str) -> None:
+    """The aggregator on the card: the columnar drain with and without
+    --device-arena; the arena's state and device CPR fixes on the card
+    equal a CPU arena's over the same updates and sweeps; aircraft.json
+    with the arena equals aircraft.json without it; readings."""
+    from readsb_tpu_torch.app import bulk_drain
+    from readsb_tpu_torch.track import arena as arena_mod
+
+    t0 = time.perf_counter()
+    chunks = agg_stream(AGG_AIRCRAFT, AGG_PER_AIRCRAFT)
+    n_frames = AGG_AIRCRAFT * AGG_PER_AIRCRAFT
+    wire_bytes = sum(len(c) for c in chunks)
+    log(f"agg: {n_frames} frames of {AGG_AIRCRAFT} aircraft, {wire_bytes} B in "
+        f"{len(chunks)} chunks, rendered in {time.perf_counter() - t0:.1f} s")
+
+    # timed runs, in turns: host only, then with the arena on the card
+    walls = {False: [], True: []}
+    for _ in range(3):
+        for arena in (False, True):
+            reset_counts()
+            app, wall = agg_replay(chunks, AGG_DEVICE, arena)
+            check_launched(read_counts(), (), "the aggregator phase")
+            check(app.messages == n_frames, f"the aggregator accepted {app.messages} of {n_frames}")
+            walls[arena].append(wall)
+
+    # the instrumented run: every update and sweep recorded, arena_update
+    # timed with CUDA events, sweep and materialize_arena per tick on the
+    # host clock around a synchronize
+    rec = {"ops": [], "upd": [], "sweep_ms": [], "mat_ms": [], "popped": [], "readback": []}
+    orig_update, orig_mat = arena_mod.arena_update, bulk_drain.materialize_arena
+
+    def timed_update(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_update(*a, **k)
+        e1.record()
+        rec["upd"].append((e0, e1, a[2]))
+        return out
+
+    def timed_mat(app, now):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig_mat(app, now)
+        rec["mat_ms"].append((time.perf_counter() - t) * 1e3)
+
+    def hooks(app):
+        ar = app.arena
+        up, sw, pop = ar.update_cols, ar.sweep, ar.pop_cpr_decodes
+
+        def update_cols(cols):
+            rec["ops"].append(("update", dict(cols)))
+            up(cols)
+            # the CPR rows' decode records: 12 int32 each
+            rec["readback"].append(48 * int(np.count_nonzero(cols["cpr_valid"])))
+
+        def sweep(now, *a):
+            rec["ops"].append(("sweep", now))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = sw(now, *a)
+            rec["sweep_ms"].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def pop_cpr_decodes():
+            out = pop()
+            rec["popped"] += out
+            return out
+
+        ar.update_cols, ar.sweep, ar.pop_cpr_decodes = update_cols, sweep, pop_cpr_decodes
+
+    arena_mod.arena_update, bulk_drain.materialize_arena = timed_update, timed_mat
+    try:
+        reset_counts()
+        app_a, _ = agg_replay(chunks, AGG_DEVICE, True, hooks)
+        check_launched(read_counts(), (), "the aggregator phase")
+    finally:
+        arena_mod.arena_update, bulk_drain.materialize_arena = orig_update, orig_mat
+    upd_ms = [e0.elapsed_time(e1) for e0, e1, _ in rec["upd"]]
+    rounds = [r for _, _, r in rec["upd"]]
+    ar = app_a.arena
+    check(not ar.cpr_decodes, "the arena's cpr_decodes was not drained by the last tick")
+
+    # the same updates and sweeps on a CPU arena: every tensor and every
+    # popped device CPR fix equal
+    cpu = arena_mod.Arena(receiver_lat=AGG_LAT, receiver_lon=AGG_LON, device="cpu")
+    t0 = time.perf_counter()
+    for kind, arg in rec["ops"]:
+        if kind == "update":
+            cpu.update_cols(arg)
+        else:
+            cpu.sweep(arg)
+    cpu_popped = cpu.pop_cpr_decodes()
+    cpu_s = time.perf_counter() - t0
+    for name, a, b in zip(arena_mod.ArenaState._fields, ar.state, cpu.state):
+        check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+              f"the arena's {name} on the card differs from the CPU arena's")
+    check(ar.slot_of == cpu.slot_of, "the arena's slot map differs from the CPU arena's")
+    check(rec["popped"] == cpu_popped and len(cpu_popped) > AGG_AIRCRAFT,
+          f"the device CPR fixes on the card ({len(rec['popped'])}) differ from the CPU "
+          f"arena's ({len(cpu_popped)})")
+
+    # aircraft.json with the arena == without it: the test's keys, then all
+    app_h, _ = agg_replay(chunks, AGG_DEVICE, False)
+    now = app_a.now_ms()
+    check(now == app_h.now_ms(), "the two aggregators end at different times")
+    doc_a = json_out.generate_aircraft_json(app_a.tracker, now, app_a.messages)
+    doc_h = json_out.generate_aircraft_json(app_h.tracker, now, app_h.messages)
+    keyed = [{k: a.get(k) for k in AGG_KEYS} for a in doc_a["aircraft"]]
+    check(keyed == [{k: a.get(k) for k in AGG_KEYS} for a in doc_h["aircraft"]],
+          "aircraft.json with --device-arena differs from the host path on the test's keys")
+    check(doc_a == doc_h, "aircraft.json with --device-arena differs from the host path: "
+          + first_diff(doc_a, doc_h))
+
+    # right answers: every aircraft, at its last encoded position
+    served = {a["hex"]: a for a in doc_a["aircraft"]}
+    check(len(served) == AGG_AIRCRAFT, f"aircraft.json holds {len(served)} aircraft")
+    last_seq = max(q for q in range(AGG_PER_AIRCRAFT) if q % 8 < 4)
+    far = 0
+    for ac in range(AGG_AIRCRAFT):
+        a = served.get(f"{0xA00000 + ac:06x}", {})
+        lat, lon = agg_track(last_seq * AGG_AIRCRAFT + ac, AGG_AIRCRAFT)
+        if "lat" not in a or abs(a["lat"] - lat) > 1e-3 or abs(a["lon"] - lon) > 1e-3:
+            far += 1
+    check(far == 0, f"{far} aircraft are not at their last encoded position")
+    last_fix = {}
+    for addr, _ts, _f, lat, lon, _nic, _rc in rec["popped"]:
+        last_fix[addr] = (lat, lon)
+    match = sum(1 for addr, (lat, lon) in last_fix.items()
+                if (app_a.tracker.aircraft[addr].lat, app_a.tracker.aircraft[addr].lon) == (lat, lon))
+    check(match == len(last_fix) == AGG_AIRCRAFT,
+          f"{match} of {len(last_fix)} last device CPR fixes are the served positions")
+
+    # launches per update and device busy per update: the recorded updates
+    # on a fresh card arena under torch.profiler
+    fresh = arena_mod.Arena(receiver_lat=AGG_LAT, receiver_lon=AGG_LON, device=AGG_DEVICE)
+    updates = [arg for kind, arg in rec["ops"] if kind == "update"]
+    fresh.update_cols(updates[0])
+    fresh = arena_mod.Arena(receiver_lat=AGG_LAT, receiver_lon=AGG_LON, device=AGG_DEVICE)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for cols in updates:
+            fresh.update_cols(cols)
+        torch.cuda.synchronize()
+    devs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(devs, "torch.profiler saw no device activity of the arena")
+    launches_upd = sum(e.count for e in devs) / len(updates)
+    busy_upd = sum(e.self_device_time_total for e in devs) / len(updates) / 1e3
+    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in devs), reverse=True)[:5]
+
+    # the card's idle share over an arena replay, under torch.profiler
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall_p = agg_replay(chunks, AGG_DEVICE, True)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+
+    nbytes = sum(t.numel() * t.element_size() for t in ar.state)
+    fps = {k: n_frames / statistics.median(v) for k, v in walls.items()}
+    log(f"agg checks: {AGG_AIRCRAFT} aircraft at their encoded positions; the arena's "
+        f"{len(arena_mod.ArenaState._fields)} tensors and {len(cpu_popped)} popped device CPR "
+        f"fixes on the card == a CPU arena over the same {len(updates)} updates and "
+        f"{len(rec['ops']) - len(updates)} sweeps (CPU replay {cpu_s:.1f} s); aircraft.json "
+        f"with --device-arena == without it; every last device fix == the served position; "
+        f"no kernel launched on {card}")
+    log(f"agg columnar drain: {fps[False]:.0f} frames/s host only "
+        f"({', '.join(f'{w:.3f}' for w in walls[False])} s), {fps[True]:.0f} frames/s with "
+        f"--device-arena ({', '.join(f'{w:.3f}' for w in walls[True])} s); median of 3, "
+        f"host clock, {n_frames} frames incl. {len(rec['sweep_ms'])} ticks, on {card}")
+    log(f"agg arena: {nbytes} B of state on the card for {ar.n} slots "
+        f"({torch.cuda.memory_allocated() / 1e6:.1f} MB allocated); {len(updates)} updates of "
+        f"{min(len(c['addr']) for c in updates)}-{max(len(c['addr']) for c in updates)} rows, "
+        f"rounds {min(rounds)}-{max(rounds)} (median {statistics.median(rounds)}); "
+        f"arena_update by CUDA events median {statistics.median(upd_ms):.3f} ms "
+        f"(min {min(upd_ms):.3f}, max {max(upd_ms):.3f}); under torch.profiler per update "
+        f"{busy_upd:.3f} ms device busy, {launches_upd:.0f} device launches; read back per "
+        f"update median {statistics.median(rec['readback']):.0f} B; on {card}")
+    log(f"agg ticks: arena_sweep median {statistics.median(rec['sweep_ms']):.3f} ms, "
+        f"materialize_arena median {statistics.median(rec['mat_ms']):.3f} ms (host clock, "
+        f"synchronized) over {len(rec['sweep_ms'])} ticks; materialize_arena reads back "
+        f"{nbytes // ar.n * len(ar.slot_of)} B per tick; profiled replay wall "
+        f"{wall_p:.3f} s, device busy {busy:.3f} s, idle {100 * (1 - busy / wall_p):.1f}% on "
+        f"{card}")
+    log("agg largest device items per update: " + "; ".join(
+        f"{ms / len(updates):.3f} ms x{c // len(updates)} {k[:50]}" for ms, c, k in top))
 
 
 def main() -> None:
@@ -1356,6 +1747,10 @@ def main() -> None:
     # --- the app on the card ---------------------------------------------------
     app_launches = app_phase(card)
     net_launches = net_phase(card)
+
+    # --- the aggregator on the card: device CPR, columnar drain, arena -------
+    cpr_phase(card)
+    agg_phase(card)
 
     entries = [
         {

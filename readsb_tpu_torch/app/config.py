@@ -340,8 +340,6 @@ DEFERRED = (
     ("8c", "persistence and history",
      ("write_state", "write_prom", "json_globe_index", "heatmap",
       "globe_history_dir", "db_file", "dump_beast", "dump_beast_dir")),
-    ("8d", "the columnar bulk path", ("net_bulk_drain",)),
-    ("10", "the device arena", ("device_arena",)),
 )
 
 # connector protocols whose lanes need the per-message decoded fields
@@ -386,9 +384,7 @@ def bulk_drain_enabled(args) -> bool:
 
 def refuse_deferred(args) -> None:
     """Raise NotImplementedError for an option or a source whose layer
-    the port does not have yet, naming its ROADMAP item.  That includes
-    network ingest where readsb_tpu's rule picks its columnar drain: the
-    port never switches to the scalar path quietly."""
+    the port does not have yet, naming its ROADMAP item."""
     for item, what, dests in DEFERRED:
         for dest in dests:
             if getattr(args, dest):
@@ -396,14 +392,6 @@ def refuse_deferred(args) -> None:
                 raise NotImplementedError(
                     f"{flag}: {what} is ROADMAP item {item} of the port"
                 )
-    if bulk_drain_enabled(args):
-        raise NotImplementedError(
-            "--net / --net-only: with no output lane that needs the "
-            "per-message path, readsb_tpu drains network input through its "
-            "columnar bulk path, which is ROADMAP item 8d of the port; "
-            "--no-net-bulk-drain, or a scalar lane such as --net-sbs-port, "
-            "runs the scalar drain"
-        )
     if args.device_type not in ("ifile", "none"):
         raise NotImplementedError(
             f"--device-type {args.device_type}: the SDR and serial sources are "

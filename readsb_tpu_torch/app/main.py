@@ -8,10 +8,12 @@ Beast, raw, SBS, ASTERIX, UAT, planefinder and gpsd input, and answers
 /re-api queries; periodic coroutines sweep the tracker and write
 aircraft.json, receiver.json, stats.json and clients.json.
 
-Network input drains through the scalar per-message path only
-(`drain_net_queue`).  Where readsb_tpu's rule picks its columnar drain,
-the port refuses at argument time (`config.bulk_drain_enabled`, ROADMAP
-item 8d).
+Network input drains as readsb_tpu's does: through the columnar drain
+(`app/bulk_drain.py`, the native Beast deframer and `track/bulk.py`)
+wherever its rule picks it (`config.bulk_drain_enabled`), else through the
+scalar per-message path (`drain_net_queue`).  Under the columnar drain,
+--device-arena keeps the tracked fields in the device arena
+(`track/arena.py`) on the app's device.
 
 The device is explicit.  Under READSB_TPU_PLATFORM=cpu the demodulator
 runs its plain PyTorch versions on the CPU; otherwise it runs on the card,
@@ -39,7 +41,7 @@ from ..io import sbs as sbs_io
 from ..io.net import Connector, InputConnection, InputService, NetEngine
 from ..io.stats import StatsCollector
 from ..track.tracker import Tracker
-from .config import parse_args
+from .config import bulk_drain_enabled, parse_args
 
 log = logging.getLogger("readsb_tpu_torch")
 
@@ -73,6 +75,23 @@ class App:
         self.net = NetEngine()
         self._net_queue = []
         self._shared_net_scorer = None
+        self.bulk = None
+        self.arena = None
+        self._net_cols_queue: list = []
+        if bulk_drain_enabled(args):
+            from .bulk_drain import make_bulk
+
+            self.bulk = make_bulk(self)
+            if args.device_arena:
+                from ..track.arena import Arena
+
+                # a fixed receiver location enables the on-device surface
+                # global decode (the reference chain always prefers it)
+                self.arena = Arena(
+                    receiver_lat=args.lat, receiver_lon=args.lon, device=self.device
+                )
+        elif args.device_arena:
+            log.warning("--device-arena needs the columnar drain; ignored")
         self.epoch_ms = int(time.time() * 1000)
         self.messages = 0
         self.remote_modes = 0
@@ -426,9 +445,13 @@ class App:
 
         class BeastIn(InputConnection):
             def __init__(self):
-                # the scalar per-message deframer: the columnar one goes with
-                # the columnar drain (ROADMAP item 8d)
-                self.deframer = beast_io.BeastDeframer()
+                # columnar drain: the native columnar deframer (readBeast
+                # analog) feeds column batches straight to the drain
+                self.cols_mode = app.bulk is not None
+                self.deframer = (
+                    beast_io.ColumnarDeframer() if self.cols_mode
+                    else beast_io.BeastDeframer()
+                )
                 self.scorer = app._net_scorer()
                 self.ping_state = None  # set by InputService when ping=True
 
@@ -459,6 +482,34 @@ class App:
                                 pass
 
             async def feed(self, data: bytes) -> None:
+                if self.cols_mode:
+                    batch = self.deframer.feed(data)
+                    if batch is not None:
+                        # Mode A/C ('1') frames are rare: per-message path
+                        ac = batch["mlen"] == 2
+                        if ac.any():
+                            from ..decode.mode_ac import decode_modeac_message
+
+                            for i in ac.nonzero()[0]:
+                                code = (int(batch["msgs"][i][0]) << 8) | int(
+                                    batch["msgs"][i][1]
+                                )
+                                mm = decode_modeac_message(
+                                    code, timestamp=int(batch["ts"][i])
+                                )
+                                mm.sys_timestamp_ms = (
+                                    int(batch["synth"][i]) or app.now_ms()
+                                )
+                                mm.remote = True
+                                mm.receiver_id = int(batch["rid"][i])
+                                app.handle_message(
+                                    mm, raw_ts=int(batch["ts"][i])
+                                )
+                        app._net_cols_queue.append(batch)
+                        if sum(len(b["ts"]) for b in app._net_cols_queue) >= 8192:
+                            app.drain_net_queue()
+                    self._drain_controls()
+                    return
                 for bf in self.deframer.feed(data):
                     if len(bf.msg) == 2:  # Beast type '1': Mode A/C
                         from ..decode.mode_ac import decode_modeac_message
@@ -715,9 +766,18 @@ class App:
     def drain_net_queue(self) -> None:
         """Batched CRC + serial accept/track for all queued net frames."""
         q = self._net_queue
-        if not q:
+        if not q and not self._net_cols_queue:
             return
         self._net_queue = []
+        if self.bulk is not None:
+            from .bulk_drain import drain_bulk, drain_cols
+
+            if q:
+                drain_bulk(self, q)
+            if self._net_cols_queue:
+                batches, self._net_cols_queue = self._net_cols_queue, []
+                drain_cols(self, batches)
+            return
         _net_t0 = time.perf_counter()
         import numpy as np
 
@@ -826,6 +886,7 @@ class App:
             _bg_t0 = time.perf_counter()
             self.drain_net_queue()
             now = self.now_ms()
+            self._materialize(now)
             self.stats_collector.sample(self, now / 1000.0)
             if getattr(self, "api_server", None) is not None:
                 # double-buffered query snapshot swap (apiUpdate, api.c:859)
@@ -870,6 +931,20 @@ class App:
             self.stats_collector.cpu["background"] += (
                 time.perf_counter() - _bg_t0
             ) * 1e3
+            # arena maintenance last, as readsb_tpu orders it
+            if self.arena is not None:
+                self.arena.sweep(now)
+
+    def _materialize(self, now: int) -> None:
+        """Sync the columnar store (and the device arena) into the dict
+        Aircraft views that every serving surface reads."""
+        if self.bulk is None:
+            return
+        from .bulk_drain import materialize, materialize_arena
+
+        materialize(self, now)
+        if self.arena is not None:
+            materialize_arena(self, now)
 
     def _uuid_bytes(self) -> bytes:
         """16-byte receiver UUID (sendUUID, net_io.c:372)."""
@@ -1250,6 +1325,7 @@ class App:
                 await asyncio.sleep(self.args.api_shutdown_delay)
             periodic.cancel()
             self.drain_net_queue()
+            self._materialize(self.now_ms())
             if self.args.write_json:
                 os.makedirs(self.args.write_json, exist_ok=True)
                 doc = json_out.generate_aircraft_json(
@@ -1316,13 +1392,10 @@ def main(argv=None) -> int:
 
 
 def viewadsb_main(argv=None) -> int:
-    """viewadsb: readsb_tpu runs `--net-only --interactive --net-connector
-    127.0.0.1,30005,beast_in`, which its rule sends through the columnar
-    drain, ROADMAP item 8d of the port."""
-    raise NotImplementedError(
-        "viewadsb: its Beast-only --net-only command takes the columnar bulk "
-        "path, which is ROADMAP item 8d of the port"
-    )
+    """viewadsb equivalent: connect to a beast source and display aircraft."""
+    argv = list(argv if argv is not None else sys.argv[1:])
+    argv = ["--net-only", "--interactive", "--net-connector", "127.0.0.1,30005,beast_in"] + argv
+    return main(argv)
 
 
 if __name__ == "__main__":

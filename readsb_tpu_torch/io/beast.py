@@ -7,9 +7,10 @@ Frame format (reference net_io.c:4737-5019 reader, 1655-1715 writer):
   0xE8 = synthetic-timestamp prefix, 0xE4 UUID, 'P' ping, 'W' commands.
   0x1A bytes inside the body are escaped by doubling.
 
-A copy of readsb_tpu's pure-Python codec.  It leaves out the columnar
-deframer (ColumnarDeframer over the native rtpu_beast_deframe), which
-only the columnar bulk drain uses: ROADMAP item 8d of the port.  One fault
+A copy of readsb_tpu's codec with its columnar deframer (ColumnarDeframer
+over the native rtpu_beast_deframe).  The columnar deframer raises when
+the native scanner cannot be built, and bridges the Python BeastDeframer
+only when its caller asks for that (use_native=False).  One fault
 of readsb_tpu is not copied: encode_frame writes a timestamp wider than
 48 bits as its low 48 bits, as readsb's writer does, where readsb_tpu
 raises OverflowError (a planefinder clock in 12 MHz ticks is 55 bits).
@@ -179,3 +180,125 @@ class BeastDeframer:
 
         del buf[:pos]
         return iter(out)
+
+
+class ColumnarDeframer:
+    """Columnar Beast deframer: feed() returns frame COLUMNS, not objects.
+
+    The native C++ scanner (rtpu_beast_deframe — the analog of the
+    reference's C readBeast, net_io.c:4737), built with g++ at first use;
+    RuntimeError if it cannot be built.  use_native=False bridges the
+    Python BeastDeframer instead.  Streams the same per-connection
+    receiverId / synthetic-timestamp prefix state and command tokens.
+    """
+
+    def __init__(self, cap: int = 8192, use_native: bool = True):
+        import numpy as np
+
+        self._np = np
+        self.cap = cap
+        self._pending = b""
+        self.receiver_id = 0
+        self.synthetic_ms = 0
+        self.frames_bad = 0
+        self.commands: list[bytes] = []
+        self._native = None
+        if use_native:
+            from .. import native as native_mod
+
+            self._native = native_mod.load()
+            if self._native is None:
+                raise RuntimeError("native Beast deframer unavailable (g++ build failed)")
+        self._py = None if self._native is not None else BeastDeframer()
+
+    def feed(self, data: bytes) -> dict | None:
+        """Returns {'msgs': (N,14) u8, 'ts': i64, 'sig': u8, 'mlen': i32,
+        'rid': u64, 'synth': i64} or None when no frames completed."""
+        np = self._np
+        if self._native is None:
+            return self._feed_py(data)
+        import ctypes
+
+        buf = self._pending + data
+        batches = []
+        while True:
+            n = len(buf)
+            if n == 0:
+                break
+            arr = np.frombuffer(buf, np.uint8)
+            msgs = np.empty((self.cap, 14), np.uint8)
+            ts = np.empty(self.cap, np.int64)
+            sig = np.empty(self.cap, np.uint8)
+            mlen = np.empty(self.cap, np.int32)
+            rid = np.empty(self.cap, np.uint64)
+            synth = np.empty(self.cap, np.int64)
+            cmds = np.zeros((64, 4), np.uint8)
+            io_rid = ctypes.c_uint64(self.receiver_id)
+            io_synth = ctypes.c_int64(self.synthetic_ms)
+            consumed = ctypes.c_long(0)
+            bad = ctypes.c_long(0)
+            n_cmds = ctypes.c_long(0)
+
+            def p(a, t):
+                return a.ctypes.data_as(ctypes.POINTER(t))
+
+            got = self._native.rtpu_beast_deframe(
+                p(arr, ctypes.c_uint8), n,
+                p(msgs, ctypes.c_uint8), p(ts, ctypes.c_int64),
+                p(sig, ctypes.c_uint8), p(mlen, ctypes.c_int32),
+                p(rid, ctypes.c_uint64), p(synth, ctypes.c_int64),
+                self.cap,
+                ctypes.byref(io_rid), ctypes.byref(io_synth),
+                ctypes.byref(consumed), ctypes.byref(bad),
+                p(cmds, ctypes.c_uint8), 64, ctypes.byref(n_cmds),
+            )
+            self.receiver_id = io_rid.value
+            self.synthetic_ms = io_synth.value
+            self.frames_bad += bad.value
+            MALFORMED_BYTES[0] += bad.value
+            for k in range(n_cmds.value):
+                t = int(cmds[k, 0])
+                ln = 3 if t == ord("P") else 1
+                self.commands.append(bytes([t]) + bytes(cmds[k, 1 : 1 + ln]))
+            if got:
+                batches.append(
+                    dict(msgs=msgs[:got].copy(), ts=ts[:got].copy(),
+                         sig=sig[:got].copy(), mlen=mlen[:got].copy(),
+                         rid=rid[:got].copy(), synth=synth[:got].copy())
+                )
+            buf = buf[consumed.value:]
+            if got < self.cap:
+                break
+        self._pending = bytes(buf)
+        if not batches:
+            return None
+        if len(batches) == 1:
+            return batches[0]
+        return {
+            k: np.concatenate([b[k] for b in batches]) for k in batches[0]
+        }
+
+    def _feed_py(self, data: bytes) -> dict | None:
+        np = self._np
+        frames = [f for f in self._py.feed(data)]
+        self.receiver_id = self._py.receiver_id
+        self.synthetic_ms = self._py.synthetic_ms
+        self.frames_bad = self._py.frames_bad
+        self.commands = self._py.commands
+        if not frames:
+            return None
+        n = len(frames)
+        msgs = np.zeros((n, 14), np.uint8)
+        mlen = np.zeros(n, np.int32)
+        for i, f in enumerate(frames):
+            b = f.msg[:14]
+            msgs[i, : len(b)] = np.frombuffer(b, np.uint8)
+            mlen[i] = len(f.msg)
+        return dict(
+            msgs=msgs,
+            ts=np.fromiter((f.timestamp for f in frames), np.int64, n),
+            sig=np.fromiter((f.signal_byte for f in frames), np.uint8, n),
+            mlen=mlen,
+            rid=np.fromiter((f.receiver_id for f in frames), np.uint64, n),
+            synth=np.fromiter((f.synthetic_ms for f in frames), np.int64, n),
+        )

@@ -1,4 +1,5 @@
-"""Native (C++) host finalizer, loaded via ctypes.
+"""Native (C++) host components, loaded via ctypes: the finalizer and the
+columnar Beast deframer (rtpu_beast_deframe, io/beast.ColumnarDeframer).
 
 finalizer.cpp is compiled on demand with g++ into BUILD_DIR.  load()
 returns None when no compiler is available; callers that pass
@@ -83,6 +84,18 @@ def load():
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.POINTER(OutFrame), ctypes.c_int,
             ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.rtpu_beast_deframe.restype = ctypes.c_long
+        lib.rtpu_beast_deframe.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_long,
+            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_long),
         ]
         _lib = lib
         return _lib

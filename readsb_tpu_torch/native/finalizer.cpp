@@ -442,3 +442,99 @@ int rtpu_finalize_block(
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Columnar Beast deframer (readBeast, net_io.c:4737-5019): raw stream bytes
+// in, frame columns out.  Semantics mirror io/beast.py BeastDeframer exactly
+// (fuzz-tested equivalent in tests/test_native_beast.py); the reference's
+// per-byte C loop is the precedent for doing this natively.
+// ---------------------------------------------------------------------------
+
+extern "C" long rtpu_beast_deframe(
+    const uint8_t* buf, long n,
+    uint8_t* msgs /* cap x 14 */, int64_t* ts, uint8_t* sig, int32_t* mlen,
+    uint64_t* rid, int64_t* synth, long cap,
+    uint64_t* io_rid, int64_t* io_synth,
+    long* consumed, long* bad,
+    uint8_t* cmds /* cmd_cap x 4 */, long cmd_cap, long* n_cmds)
+{
+    long pos = 0, out = 0, ncmd = *n_cmds, nbad = 0;
+    uint64_t cur_rid = *io_rid;
+    int64_t cur_synth = *io_synth;
+    while (out < cap) {
+        long i = pos;
+        while (i < n && buf[i] != 0x1A) i++;
+        if (i >= n) { pos = n; break; }
+        if (i + 1 >= n) { pos = i; break; }  // type byte not yet received
+        uint8_t t = buf[i + 1];
+        if (t == 0x1A) { pos = i + 2; continue; }  // doubled esc outside frame
+        int msg_len = 0, body_len;
+        if      (t == '1') { msg_len = 2;  body_len = 9;  }
+        else if (t == '2') { msg_len = 7;  body_len = 14; }
+        else if (t == '3') { msg_len = 14; body_len = 21; }
+        else if (t == '5') { msg_len = 21; body_len = 28; }
+        else if (t == 0xE3) body_len = 8;
+        else if (t == 0xE8) body_len = 6;
+        else if (t == 0xE4) body_len = 16;
+        else if (t == 'P') body_len = 3;
+        else if (t == 'W') body_len = 1;
+        else { nbad++; pos = i + 2; continue; }
+
+        uint8_t body[32];
+        int blen = 0;
+        long j = i + 2;
+        bool incomplete = false, truncated = false;
+        while (blen < body_len) {
+            if (j >= n) { incomplete = true; break; }
+            uint8_t b = buf[j];
+            if (b == 0x1A) {
+                if (j + 1 >= n) { incomplete = true; break; }
+                if (buf[j + 1] == 0x1A) { body[blen++] = 0x1A; j += 2; continue; }
+                truncated = true;  // a new frame begins inside this body
+                break;
+            }
+            body[blen++] = b;
+            j++;
+        }
+        if (incomplete) { pos = i; break; }   // wait for more stream data
+        if (truncated || blen < body_len) { nbad++; pos = j; continue; }
+
+        if (msg_len) {
+            int64_t tv = 0;
+            for (int b = 0; b < 6; b++) tv = (tv << 8) | body[b];
+            ts[out] = tv;
+            sig[out] = body[6];
+            mlen[out] = msg_len;
+            int copy = msg_len < 14 ? msg_len : 14;
+            for (int b = 0; b < copy; b++) msgs[out * 14 + b] = body[7 + b];
+            for (int b = copy; b < 14; b++) msgs[out * 14 + b] = 0;
+            rid[out] = cur_rid;
+            synth[out] = cur_synth;
+            out++;
+        } else if (t == 0xE3) {
+            uint64_t v = 0;
+            for (int b = 0; b < 8; b++) v = (v << 8) | body[b];
+            cur_rid = v;
+        } else if (t == 0xE8) {
+            int64_t v = 0;
+            for (int b = 0; b < 6; b++) v = (v << 8) | body[b];
+            cur_synth = v;
+        } else if (t == 0xE4) {
+            // UUID: connection identity handled by the server layer
+        } else {  // 'P' / 'W' command tokens
+            if (ncmd < cmd_cap) {
+                cmds[ncmd * 4] = t;
+                for (int b = 0; b < 3; b++)
+                    cmds[ncmd * 4 + 1 + b] = b < body_len ? body[b] : 0;
+                ncmd++;
+            }
+        }
+        pos = j;
+    }
+    *io_rid = cur_rid;
+    *io_synth = cur_synth;
+    *consumed = pos;
+    *bad += nbad;
+    *n_cmds = ncmd;
+    return out;
+}

@@ -157,6 +157,33 @@ def encode_df11(addr: int, ca: int = 5) -> bytes:
     return append_crc(bytes(msg), 56)
 
 
+def encode_df5(addr: int, squawk_hex: int) -> bytes:
+    """DF5 identity reply; ID13 Gillham squawk, parity overlaid with addr.
+
+    squawk_hex: the 4-octal-digit code as hex nibbles (e.g. 0x7700).
+    Inverse of decode_id13 (mode_s.c:83-108).
+    """
+    id13 = 0
+    for bit, weight in (
+        (0x1000, 0x0010), (0x0800, 0x1000), (0x0400, 0x0020),
+        (0x0200, 0x2000), (0x0100, 0x0040), (0x0080, 0x4000),
+        (0x0020, 0x0100), (0x0010, 0x0001), (0x0008, 0x0200),
+        (0x0004, 0x0002), (0x0002, 0x0400), (0x0001, 0x0004),
+    ):
+        if squawk_hex & weight:
+            id13 |= bit
+    msg = bytearray(7)
+    _setbits(msg, 1, 5, 5)
+    _setbits(msg, 6, 8, 0)  # FS airborne
+    _setbits(msg, 20, 32, id13)
+    base = append_crc(bytes(msg), 56)
+    out = bytearray(base)
+    out[4] ^= (addr >> 16) & 0xFF
+    out[5] ^= (addr >> 8) & 0xFF
+    out[6] ^= addr & 0xFF
+    return bytes(out)
+
+
 def encode_df4(addr: int, alt_ft: float) -> bytes:
     """DF4 altitude reply; parity overlaid with the address (AP field)."""
     msg = bytearray(7)

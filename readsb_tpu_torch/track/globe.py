@@ -9,6 +9,10 @@ tar1090 web app's globe_NNNN tile fetches resolve identically:
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
+
 GLOBE_INDEX_GRID = 3
 GLOBE_LAT_MULT = 360 // GLOBE_INDEX_GRID + 1  # 121
 GLOBE_MIN_INDEX = 1000
@@ -96,3 +100,27 @@ def globe_index(lat: float, lon: float) -> int:
     j = (glon + 180) // grid
     res = i * GLOBE_LAT_MULT + j + GLOBE_MIN_INDEX
     return res if res <= GLOBE_MAX_INDEX else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_arrays():
+    t = np.array(SPECIAL_TILES, dtype=np.int32)
+    return t[:, 0], t[:, 1], t[:, 2], t[:, 3]
+
+
+def globe_index_np(lat: np.ndarray, lon: np.ndarray) -> np.ndarray:
+    """Vectorized globe_index for bulk tile assignment of the arena."""
+    grid = GLOBE_INDEX_GRID
+    glat = grid * ((lat + 90) / grid).astype(np.int32) - 90
+    glon = grid * ((lon + 180) / grid).astype(np.int32) - 180
+    south, west, north, east = _tile_arrays()
+    la = glat[:, None]
+    lo = glon[:, None]
+    in_lat = (la >= south) & (la < north)
+    wrap = west > east
+    in_lon = np.where(wrap, (lo >= west) | (lo < east), (lo >= west) & (lo < east))
+    hit = in_lat & in_lon  # (N, T)
+    first = np.argmax(hit, axis=1)
+    any_hit = hit.any(axis=1)
+    regular = ((glat + 90) // grid) * GLOBE_LAT_MULT + (glon + 180) // grid + GLOBE_MIN_INDEX
+    return np.where(any_hit, first, np.minimum(regular, GLOBE_MAX_INDEX)).astype(np.int32)

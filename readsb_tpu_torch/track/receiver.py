@@ -111,7 +111,9 @@ class ReceiverStore:
         self, rid: int, addr: int, no_modify: bool,
         lat: float, lon: float, now: int,
     ) -> int:
-        """Row-level receiverPositionReceived core (receiver.c:141-246)."""
+        """Row-level receiverPositionReceived core (receiver.c:141-246) —
+        shared by the dict tracker and the columnar BulkTracker (which
+        computes no_modify from its columns)."""
         if rid == 0 or lat > 85.0 or lat < -85.0 or lon < -179.9 or lon > 179.9:
             return RANGE_UNCLEAR
 
@@ -158,6 +160,110 @@ class ReceiverStore:
         if distance > RECEIVER_MAX_RANGE:
             return RANGE_BAD
         return RANGE_GOOD
+
+    def position_received_cols(self, rids, addrs, no_modify, lat, lon, now):
+        """Columnar receiverPositionReceived over one round of rows.
+
+        Verdicts are computed against each feeder's round-entry box center
+        and box updates are applied per feeder at round end — the same
+        ordering looseness the reference's decodePool threads have.  A
+        feeder whose box is not yet established falls back to the serial
+        row path (seeding is genuinely order-dependent).  Established
+        feeders are handled fully vectorized: one haversine over all rows
+        and sorted-group reductions per feeder.  Returns an int verdict
+        array (RANGE_GOOD/BAD/UNCLEAR)."""
+        import numpy as np
+
+        n = len(rids)
+        verdict = np.full(n, RANGE_UNCLEAR, np.int64)
+        ok = (
+            (rids != 0)
+            & (lat <= 85.0) & (lat >= -85.0)
+            & (lon >= -179.9) & (lon <= 179.9)
+        )
+        if not ok.any():
+            return verdict
+        idx = np.nonzero(ok)[0]
+        uniq, inv = np.unique(rids[idx], return_inverse=True)
+        recs = [self.receivers.get(int(u)) for u in uniq]
+        est = np.array(
+            [r is not None and r.position_counter > 0 for r in recs]
+        )
+
+        # seeding feeders: serial per row (order-dependent by design)
+        for u in np.nonzero(~est)[0]:
+            for k in idx[inv == u]:
+                verdict[k] = self.position_received_row(
+                    int(rids[k]), int(addrs[k]), bool(no_modify[k]),
+                    float(lat[k]), float(lon[k]), int(now[k]),
+                )
+        if not est.any():
+            return verdict
+
+        sel = est[inv]
+        rows = idx[sel]
+        g = inv[sel]  # feeder group per row (index into uniq/recs)
+        clat = np.array([r.lat if r is not None else 0.0 for r in recs])
+        clon = np.array([r.lon if r is not None else 0.0 for r in recs])
+        la0 = np.radians(clat[g])
+        lo0 = np.radians(clon[g])
+        la1 = np.radians(lat[rows])
+        lo1 = np.radians(lon[rows])
+        h = (
+            np.sin((la1 - la0) / 2) ** 2
+            + np.cos(la0) * np.cos(la1) * np.sin((lo1 - lo0) / 2) ** 2
+        )
+        d = 6371e3 * 2 * np.arcsin(np.minimum(1.0, np.sqrt(h)))
+        verdict[rows] = np.where(d > RECEIVER_MAX_RANGE, RANGE_BAD, RANGE_GOOD)
+
+        mod = ~no_modify[rows]
+        if not mod.any():
+            return verdict
+        within = mod & (d < RECEIVER_MAX_RANGE)
+        # per-feeder aggregation via sort + reduceat
+        order = np.argsort(g, kind="stable")
+        gs = g[order]
+        bounds = np.nonzero(np.r_[True, gs[1:] != gs[:-1]])[0]
+        for base, u in zip(bounds, gs[bounds]):
+            end = bounds[bounds > base]
+            end = int(end[0]) if len(end) else len(gs)
+            rr = order[base:end]
+            r = recs[u]
+            w = within[rr]
+            if w.any():
+                rw = rows[rr[w]]
+                r.lat_min = min(r.lat_min, float(lat[rw].min()))
+                r.lat_max = max(r.lat_max, float(lat[rw].max()))
+                r.lon_min = min(r.lon_min, float(lon[rw].min()))
+                r.lon_max = max(r.lon_max, float(lon[rw].max()))
+                cnt = int(w.sum())
+                r.good_counter += cnt
+                r.bad_counter = max(0.0, r.bad_counter - 0.5 * cnt)
+            far = mod[rr] & (d[rr] > RECEIVER_MAX_RANGE)
+            if far.any() and not r.bad_extent:
+                for k in rows[rr[far]]:
+                    bad_extent = True
+                    for ad0, _ts in r.bad_aircraft:
+                        if ad0 == int(addrs[k]):
+                            bad_extent = False
+                            break
+                    if bad_extent:
+                        nk = int(now[k])
+                        r.bad_aircraft = [
+                            (ad, ts) for ad, ts in r.bad_aircraft
+                            if nk - ts <= 3 * MINUTES
+                        ]
+                        if len(r.bad_aircraft) < RECEIVER_BAD_AIRCRAFT:
+                            r.bad_aircraft.append((int(addrs[k]), nk))
+                            bad_extent = False
+                    if bad_extent:
+                        r.bad_extent = int(now[k])
+                        break
+            nmod = int(mod[rr].sum())
+            if nmod:
+                r.position_counter += nmod
+                r.last_seen = int(now[rows[rr[mod[rr]]]].max())
+        return verdict
 
     def get_reference(self, rid: int) -> Optional[tuple[float, float]]:
         """receiverGetReference (receiver.c:247-290)."""

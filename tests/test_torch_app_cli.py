@@ -8,8 +8,8 @@ exits 0, and its aircraft.json equals the in-process run's apart from
 `now`.  Without that variable and without a card it exits non-zero and
 writes nothing.  Each option whose layer is not ported raises
 NotImplementedError naming its ROADMAP item, before any work starts; the
-network options parse, and raise naming item 8d only where readsb_tpu's
-rule picks its columnar drain.
+network options, --net-bulk-drain and --device-arena parse as
+readsb_tpu's do.
 No test here runs readsb_tpu's demodulator.
 """
 
@@ -145,28 +145,33 @@ DEFERRED = [
 
 @pytest.mark.parametrize("extra,item", DEFERRED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_deferred_options_raise_naming_their_item(extra, item, capture, monkeypatch):
-    """An option of a layer still to port raises naming its item.  The
-    options of item 8b are ported: beside --net they parse, and raise
-    naming item 8d exactly where readsb_tpu's rule sends network input
-    through its columnar drain; with --no-net-bulk-drain they parse."""
+    """An option of a layer still to port (items 8c and 8e) raises naming
+    its item.  The options of the ported items parse as readsb_tpu's do:
+    those of item 8b beside --net, on whichever drain readsb_tpu's rule
+    picks (the columnar one is item 8d), and --net-bulk-drain (8d) and
+    --device-arena (10) themselves."""
     monkeypatch.setenv("READSB_TPU_PLATFORM", "cpu")
     argv = ["--device-type", "ifile", "--ifile", capture, *extra]
+    if item in ("8d", "10"):
+        assert vars(main.parse_args(argv)) == vars(jax_parse_args(argv))
+        return
     if item != "8b":
         with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
             main.main(argv)
         return
     for net in (["--net"], ["--net", "--no-net-bulk-drain"]):
-        if jax_main.App._bulk_drain_enabled(jax_parse_args(argv + net)):
-            with pytest.raises(NotImplementedError, match=r"ROADMAP item 8d\b.*--no-net-bulk-drain"):
-                main.parse_args(argv + net)
-        else:
-            assert main.parse_args(argv + net).net
+        args = main.parse_args(argv + net)
+        assert args.net and vars(args) == vars(jax_parse_args(argv + net))
 
 
-def test_viewadsb_raises_naming_its_item():
-    """viewadsb's Beast-only --net-only command takes the columnar drain."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8d\b"):
-        main.viewadsb_main([])
+def test_viewadsb_raises_naming_its_item(monkeypatch):
+    """viewadsb no longer raises: its Beast-only --net-only command takes
+    the columnar drain, which the port has (item 8d).  It runs readsb_tpu's
+    command line through main."""
+    seen = []
+    monkeypatch.setattr(main, "main", lambda argv=None: seen.append(argv) or 0)
+    assert main.viewadsb_main([]) == 0
+    assert seen == [["--net-only", "--interactive", "--net-connector", "127.0.0.1,30005,beast_in"]]
 
 
 def test_parser_parses_every_option_as_the_reference():

@@ -420,3 +420,105 @@ def test_fused_kernel_equals_plain_with_a_channel_layout(dev, halo):
     assert want[2].any()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# --- the device arena and the device CPR cores --------------------------------
+
+
+def _arena_msgs(seed=3, n_ac=30, n_msgs=1500, t0=1_760_000_000_000):
+    """A time-ordered stream of ModesMessages with lattice fields, altitude
+    excursions, squawk churn, callsigns and CPR pairs, at epoch ms."""
+    from readsb_tpu_torch.decode.cpr import encode_cpr
+    from readsb_tpu_torch.decode.fields import CprType, ModesMessage, Source
+    from readsb_tpu_torch.track.arena import ATTR_OF, FIELDS
+
+    rng = np.random.default_rng(seed)
+    addrs = [0x4A0000 + i for i in range(n_ac)]
+    msgs, t = [], t0
+    for i in range(n_msgs):
+        t += int(rng.integers(5, 120))
+        # two thirds of the aircraft fall silent halfway (the sweep frees them)
+        k = int(rng.integers(len(addrs) if 2 * i < n_msgs else len(addrs) // 3))
+        src = Source(int(rng.choice([Source.MODE_S, Source.ADSB, Source.MLAT])))
+        mm = ModesMessage(msgtype=17, addr=addrs[k], source=src, sys_timestamp_ms=t)
+        for name in FIELDS:
+            if rng.random() < 0.2:
+                setattr(mm, ATTR_OF[name], float(np.float32(rng.uniform(-500, 500))))
+        if rng.random() < 0.3:
+            mm.baro_alt = 10_000 + 50 * i + int(rng.choice([0, 0, 0, 30_000]))
+            mm.alt_q_bit, mm.crc = 1, int(rng.random() < 0.3)
+        if rng.random() < 0.2:
+            mm.squawk_hex = int(rng.choice([0x1200, 0x7700, 0x2000]))
+        if rng.random() < 0.1:
+            mm.callsign = "CS" + str(int(rng.integers(100, 999)))
+        if rng.random() < 0.5:
+            odd = int(rng.integers(2))
+            surf = rng.random() < 0.2
+            lat, lon = 47.0 + 0.05 * k + 1e-5 * i, 8.0 + 0.05 * k
+            mm.cpr_lat, mm.cpr_lon = encode_cpr(lat, lon, odd, surface=surf)
+            mm.cpr_valid, mm.cpr_odd = True, bool(odd)
+            mm.cpr_type = CprType.SURFACE if surf else CprType.AIRBORNE
+            mm.metype = 6 if surf else 11
+        msgs.append(mm)
+    return msgs
+
+
+def test_arena_update_and_sweep_on_the_card_equal_the_cpu(dev):
+    from readsb_tpu_torch.track.arena import Arena
+
+    msgs = _arena_msgs()
+    arenas = [Arena(n=4096, receiver_lat=47.5, receiver_lon=8.5, device=d) for d in (dev, "cpu")]
+    for ar in arenas:
+        i = 0
+        rng = np.random.default_rng(1)
+        while i < len(msgs):
+            j = min(len(msgs), i + int(rng.integers(30, 400)))
+            ar.update_batch(msgs[i:j])
+            i = j
+    card, cpu = arenas
+    for a, b in zip(card.state, cpu.state):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    decodes = card.pop_cpr_decodes()
+    assert decodes == cpu.pop_cpr_decodes() and len(decodes) > 100
+    now = msgs[-1].sys_timestamp_ms + 5 * 60_000 - 20_000
+    assert card.sweep(now) == cpu.sweep(now) > 0
+    for a, b in zip(card.state, cpu.state):
+        assert torch.equal(a.cpu(), b)
+    assert card.slot_of == cpu.slot_of and card.free == cpu.free
+
+
+def test_cpr_cores_on_the_card_equal_the_cpu(dev):
+    from readsb_tpu_torch.ops import cpr_device
+
+    rng = np.random.default_rng(5)
+    n = 1 << 15
+    cols = [torch.from_numpy(rng.integers(0, 1 << 17, n).astype(np.int32)) for _ in range(4)]
+    f = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
+    s = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
+    q = cpr_device.surface_quadrant_consts(46.0)
+    c = cpr_device.relative_consts(46.0, 7.0)
+    runs = (
+        lambda x, d: cpr_device.decode_airborne_core(*x, f.to(d)),
+        lambda x, d: cpr_device.decode_surface_core(*x, f.to(d), q["zneg"], q["zpos"], q["t0"], q["t1"]),
+        lambda x, d: cpr_device.decode_relative_core(
+            x[0], x[1], f.to(d), s.to(d), cpr_device.relative_consts_on(c, d)),
+    )
+    for run in runs:
+        got = run([x.to(dev) for x in cols], dev)
+        want = run(cols, torch.device("cpu"))
+        for k in want:
+            assert got[k].device.type == "cuda" and torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_arena_refuses_a_batch_on_another_device(dev):
+    from readsb_tpu_torch.track import arena as arena_mod
+
+    st = arena_mod.empty_arena(512, dev)
+    cols = {k: np.zeros((256,) + ((arena_mod.NFIELDS,) if k in ("fmask", "fval") else
+                                 (2,) if k == "cs" else ()), dt)
+            for k, dt in arena_mod._BATCH_DTYPES.items()}
+    cols["slot"][:] = -1
+    with pytest.raises(ValueError, match="one device per process"):
+        arena_mod.arena_update(st, arena_mod.upload_batch(cols, "cpu"), 1)
+    st, ys = arena_mod.arena_update(st, arena_mod.upload_batch(cols, dev), 1)
+    assert ys.device.type == "cuda" and tuple(ys.shape) == (1, 512, 12)

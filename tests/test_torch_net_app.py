@@ -24,7 +24,7 @@ of the port alone, so no JAX compile is paid.
 - End to end, the port alone over 127.0.0.1: a feeder App demodulates a
   0.3 s capture and serves Beast, raw, SBS and the API; an aggregator App
   takes the feeder's Beast lane through --net-connector.
-- Argument time: the columnar pick raises naming ROADMAP item 8d.
+- Argument time: every network option parses as readsb_tpu's does.
 
 Every network read and await has its own asyncio.wait_for limit.
 """
@@ -512,15 +512,12 @@ ARGV = [
 
 @pytest.mark.parametrize("argv", ARGV, ids=" ".join)
 def test_the_columnar_pick_raises_naming_8d(argv):
-    """Where readsb_tpu's rule picks its columnar drain (or it is forced),
-    the port refuses at argument time naming ROADMAP item 8d and the way
-    to the scalar drain; everywhere else every option of item 8b parses."""
-    if jax_main.App._bulk_drain_enabled(jax_parse_args(argv)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 8d\b"):
-            main.parse_args(argv)
-    else:
-        args = main.parse_args(argv)
-        assert vars(args) == vars(jax_parse_args(argv))
+    """Nothing raises any more where readsb_tpu's rule picks its columnar
+    drain (or it is forced): the port has that drain (ROADMAP item 8d), and
+    every option parses as readsb_tpu's does, on either drain
+    (tests/test_torch_bulk_app.py drives it)."""
+    args = main.parse_args(argv)
+    assert vars(args) == vars(jax_parse_args(argv))
 
 
 # --- end to end, the port alone -----------------------------------------------
