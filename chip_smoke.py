@@ -56,6 +56,23 @@ and then the aggregator's device parts:
                    the per-tick sweep and materialize_arena, and the
                    card's idle share
 
+and then the SDR sources and persistence:
+
+  sdr              App._run_sdr_source (the path of --device-type rtlsdr,
+                   soapy and bladerf) fed by an in-process stand-in of an
+                   SDR source: one receiver of 10 s of traffic (13
+                   aircraft) at the default --blocks-per-batch, as uc8,
+                   sc16 and sc16q11; each route on the card equals its CPU
+                   run and run_ifile over the same whole superblocks and
+                   launches exactly its kernels; then the uc8 route paced
+                   at 2.4 MS/s through the sources' shedding queue, read
+                   (dropped buffers, feed() ms per superblock, the app's
+                   share of realtime) without checks
+  state            whether libzstd.so.1 is on the machine; if it is, the
+                   uc8 SDR App's --write-state directory restores into a
+                   fresh card App, --dump-beast decompresses to the frames
+                   taken, and &binCraft&zstd to the plain answer
+
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
@@ -81,6 +98,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -88,10 +106,11 @@ import torch
 
 from readsb_tpu_torch import BUILD_DIR, pipeline
 from readsb_tpu_torch.app import main as app_main
-from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT
+from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT, SAMPLE_RATE
 from readsb_tpu_torch.decode.mode_ac import modec_to_modea
 from readsb_tpu_torch.io import beast as beast_io
-from readsb_tpu_torch.io import json_out
+from readsb_tpu_torch.io import json_out, sdr, zstd
+from readsb_tpu_torch.io import state as state_io
 from readsb_tpu_torch.ops import demod as demod_ops
 from readsb_tpu_torch.ops import fused, kernels
 from readsb_tpu_torch.ops.convert import mag_uc8_words, uc8_lut_np
@@ -1215,6 +1234,263 @@ def agg_phase(card: str) -> None:
         f"{ms / len(updates):.3f} ms x{c // len(updates)} {k[:50]}" for ms, c, k in top))
 
 
+# the SDR phase: one receiver at full width through App._run_sdr_source,
+# fed by an in-process stand-in of an SDR source: 10 s of traffic at
+# 2.4 MS/s, 13 aircraft, the default --blocks-per-batch
+SDR_S = 10.0
+SDR_AIRCRAFT = 13
+SDR_ROUTES = {
+    # route: (argv, source format, scale of the rendered scene, its kernels)
+    "uc8": (["--device-type", "rtlsdr"], "uc8", 1.0, APP_ROUTES["multi"]),
+    "sc16": (["--device-type", "soapy"], "sc16", 1.0, APP_ROUTES["sc16"]),
+    # sc16q11's full scale is 2048: the sc16 scene at 1/16 of its scale
+    "sc16q11": (["--device-type", "bladerf"], "sc16q11", 1 / 16, APP_ROUTES["sc16"]),
+}
+
+
+def write_sdr_capture(job: tuple) -> list[str]:
+    """Render one capture of the SDR phase to its file; the DF17 addresses
+    it holds.  Runs in a worker process."""
+    path, fmt, scale, seed, duration_s = job
+    cap = build_traffic_capture(duration_s, SDR_AIRCRAFT, seed)
+    iq = cap.render_iq() * scale
+    (quantize_uc8(iq) if fmt == "uc8" else quantize_sc16(iq)).tofile(path)
+    return sorted({t["hex"][2:8] for t in cap.truth if t.get("hex", "").startswith("8d")})
+
+
+class TimedQueue(asyncio.Queue):
+    """An asyncio.Queue that adds up the time its consumer waits in get()."""
+
+    waited = 0.0
+
+    async def get(self):
+        t0 = time.perf_counter()
+        try:
+            return await super().get()
+        finally:
+            self.waited += time.perf_counter() - t0
+
+
+class FakeSdrSource:
+    """The interface of io/sdr.py's sources (open, start(loop), queue,
+    dropped_buffers, close) over a capture's bytes: SDR_BUF_BYTES pieces,
+    then the b"" end marker.  Lossless, it waits for room in the queue;
+    realtime, a thread hands each piece to the loop when the sample clock
+    reaches its end, through the sources' own shedding _push."""
+
+    _push = sdr.RtlSdrSource._push
+
+    def __init__(self, data: bytes, bps: int, realtime: bool = False):
+        self.data, self.bps, self.realtime = data, bps, realtime
+        self.queue = TimedQueue(maxsize=sdr.SDR_N_BUFFERS)
+        self.dropped_buffers = 0
+        self.opened = self.closed = False
+        self._stop = threading.Event()
+        self._thread = self._task = None
+
+    def open(self) -> None:
+        self.opened = True
+
+    def start(self, loop) -> None:
+        if self.realtime:
+            self._thread = threading.Thread(target=self._paced, args=(loop,), daemon=True)
+            self._thread.start()
+        else:
+            self._task = loop.create_task(self._lossless())
+
+    async def _lossless(self) -> None:
+        for i in range(0, len(self.data), sdr.SDR_BUF_BYTES):
+            await self.queue.put(self.data[i:i + sdr.SDR_BUF_BYTES])
+        await self.queue.put(b"")
+
+    def _paced(self, loop) -> None:
+        t0 = time.perf_counter()
+        for i in range(0, len(self.data), sdr.SDR_BUF_BYTES):
+            piece = self.data[i:i + sdr.SDR_BUF_BYTES]
+            wait = t0 + (i + len(piece)) / self.bps / SAMPLE_RATE - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            if self._stop.is_set():
+                return
+            loop.call_soon_threadsafe(self._push, piece)
+        loop.call_soon_threadsafe(self._push, b"")
+
+    def close(self) -> None:
+        self._stop.set()
+        self.closed = True
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            check(not self._thread.is_alive(), "the paced source's thread did not stop")
+
+
+def sdr_run(app, fmt: str, src: FakeSdrSource) -> float:
+    """Seconds of app._run_sdr_source(src) on the host clock, device work
+    included."""
+    async def go():
+        app._exit_event = asyncio.Event()
+        await asyncio.wait_for(app._run_sdr_source(src, fmt), 600)
+
+    if app.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asyncio.run(go())
+    if app.device.type == "cuda":
+        torch.cuda.synchronize()
+    check(src.opened and src.closed, "_run_sdr_source did not open and close its source")
+    return time.perf_counter() - t0
+
+
+def sdr_phase(card: str):
+    """The SDR sources' path on the card: each route's fake source through
+    _run_sdr_source equals the same run on the CPU and run_ifile over the
+    same whole superblocks, launching exactly its kernels; then the uc8
+    route at realtime pace.  Returns the counted routes' launches and the
+    uc8 card App."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sdr_")
+    d = tmp.name
+    paths = {r: os.path.join(d, f"{r}.dat") for r in SDR_ROUTES}
+    jobs = [(paths[r], fmt, scale, 900, SDR_S) for r, (_, fmt, scale, _) in SDR_ROUTES.items()]
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=ctx) as pool:
+        scene = set(list(pool.map(write_sdr_capture, jobs))[0])  # one scene, one seed
+    log(f"sdr: {len(jobs)} captures of {SDR_S} s ({SDR_AIRCRAFT} aircraft) rendered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sdr_launches = {name: 0 for name in WRAPPERS}
+    uc8_app = None
+    for route, (argv, fmt, _, used) in SDR_ROUTES.items():
+        data = open(paths[route], "rb").read()
+        bps = 2 if fmt == "uc8" else 4
+        card_app = make_app(argv, "cuda", RecordingApp)
+        src = FakeSdrSource(data, bps)
+        reset_counts()
+        t_card = sdr_run(card_app, fmt, src)
+        launches = read_counts()
+        check_launched(launches, used, f"the SDR phase's {route} route")
+        for name, count in launches.items():
+            sdr_launches[name] += count
+        cpu_app = make_app(argv, "cpu", RecordingApp)
+        t_cpu = sdr_run(cpu_app, fmt, FakeSdrSource(data, bps))
+        got, want = app_results(card_app), app_results(cpu_app)
+        for key in want:
+            check(got[key] == want[key], f"sdr {route}: {key} on the card differs from the CPU "
+                                         f"run at {first_diff(got[key], want[key])}")
+        check(frame_key(card_app.frames) == frame_key(cpu_app.frames),
+              f"sdr {route}: the card's frames differ from the CPU run's")
+        # run_ifile over the whole superblocks that _run_sdr_source fed,
+        # without its final flush (the SDR runner does not flush)
+        step = card_app._demod.super_samples * bps
+        whole = os.path.join(d, f"{route}.whole.dat")
+        with open(whole, "wb") as f:
+            f.write(data[: len(data) // step * step])
+        ifile_app = make_app(["--device-type", "ifile", "--ifile", whole, "--iformat", fmt],
+                             "cuda", RecordingApp)
+        flush = pipeline.Demodulator.flush
+        pipeline.Demodulator.flush = lambda self: []
+        try:
+            run_app(ifile_app)
+        finally:
+            pipeline.Demodulator.flush = flush
+        ref = app_results(ifile_app)
+        for key in ref:
+            check(got[key] == ref[key], f"sdr {route}: {key} differs from run_ifile's at "
+                                        f"{first_diff(got[key], ref[key])}")
+        check(frame_key(card_app.frames) == frame_key(ifile_app.frames),
+              f"sdr {route}: the frames differ from run_ifile's")
+        doc = got["aircraft.json"]
+        check(scene <= with_positions(doc),
+              f"sdr {route}: {len(scene - with_positions(doc))} of the scene's aircraft "
+              f"have no position")
+        n_sb = len(data) // step
+        log(f"sdr {route}: {len(card_app.frames)} frames, {got['messages']} messages, "
+            f"{len(with_positions(doc))} aircraft with positions, aircraft.json, stats and demod "
+            f"stats on the card == CPU run == run_ifile over the {n_sb} whole superblocks; "
+            f"launches={launches}; lossless: card {t_card:.3f} s ({len(data) // bps / t_card / 1e6:.1f}"
+            f" MS/s, {got['messages'] / t_card:.0f} messages/s), feed() "
+            f"{card_app.stats_collector.cpu['demod'] / n_sb:.2f} ms per superblock of "
+            f"{step // bps / SAMPLE_RATE * 1e3:.1f} ms; CPU {t_cpu:.2f} s on {card}")
+        if route == "uc8":
+            uc8_app = card_app
+            uc8_data, uc8_step = data, step
+
+    # --- realtime: the uc8 route paced at 2.4 MS/s, read without checks --------
+    rt_app = make_app(SDR_ROUTES["uc8"][0], "cuda")
+    src = FakeSdrSource(uc8_data, 2, realtime=True)
+    wall = sdr_run(rt_app, "uc8", src)
+    dropped = rt_app.stats_collector.samples_dropped_buffers + src.dropped_buffers
+    fed = (len(uc8_data) - dropped * sdr.SDR_BUF_BYTES) // uc8_step
+    feed_ms = rt_app.stats_collector.cpu["demod"]
+    busy = wall - src.queue.waited
+    log(f"sdr realtime (uc8, paced at {SAMPLE_RATE / 1e6} MS/s, {len(uc8_data) // 2} samples "
+        f"in {len(range(0, len(uc8_data), sdr.SDR_BUF_BYTES))} buffers of "
+        f"{sdr.SDR_BUF_BYTES} B): dropped buffers {dropped}; {fed} superblocks fed; feed() "
+        f"{feed_ms / max(fed, 1):.2f} ms per superblock of {uc8_step // 2 / SAMPLE_RATE * 1e3:.1f}"
+        f" ms of signal; the app busy {busy:.3f} s of the {wall:.3f} s wall = "
+        f"{busy / SDR_S * 100:.1f}% of realtime ({feed_ms / 1e3:.3f} s in feed()); "
+        f"{rt_app.messages} messages = {rt_app.messages / SDR_S:.0f} messages/s of signal on "
+        f"{card}")
+    tmp.cleanup()
+    return sdr_launches, uc8_app
+
+
+def state_phase(card: str, app) -> None:
+    """Persistence on the card's machine: the uc8 SDR App's --write-state
+    directory restores into a fresh card App; --dump-beast output
+    decompresses to the frames taken; &binCraft&zstd decompresses to the
+    plain answer.  Needs libzstd.so.1, and says so where it is absent."""
+    have = zstd.available()
+    log(f"state: {zstd.LIBRARY} on this machine: {'found' if have else 'not found'}")
+    if not have:
+        log(f"state phase: did not run: {zstd.LIBRARY} is not on this machine, and the port's "
+            f"zstd codec (state blobs, the Beast dump, &binCraft&zstd) loads it")
+        return
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_state_")
+    d = tmp.name
+    sd = os.path.join(d, "state")
+    t0 = time.perf_counter()
+    n = state_io.save_state(app.tracker, sd, app.now_ms())
+    save_ms = (time.perf_counter() - t0) * 1e3
+    check(n == len(app.tracker.aircraft) >= SDR_AIRCRAFT, f"state: {n} aircraft saved")
+    t0 = time.perf_counter()
+    fresh = make_app(SDR_ROUTES["uc8"][0] + ["--write-state", sd], "cuda")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(sorted(repr(a) for a in fresh.tracker.aircraft.values())
+          == sorted(repr(a) for a in app.tracker.aircraft.values()),
+          "state: a fresh App restored from --write-state differs from the App that wrote it")
+
+    dump = os.path.join(d, "dump")
+    dump_app = make_app(["--net-only", "--dump-beast", f"{dump},30"], "cuda")
+    conn = dump_app._beast_input_factory()()
+    check(dump_app.bulk is not None and conn.cols_mode is False,
+          "--dump-beast: the Beast input did not take the object deframer")
+    stream = b"".join(
+        beast_io.encode_synthetic_ts(APP_EPOCH_MS + f.timestamp // 12000)
+        + beast_io.encode_frame(f.msg, f.timestamp, f.signal_power) for f in app.frames)
+    for i in range(0, len(stream), 65536):
+        asyncio.run(conn.feed(stream[i:i + 65536]))
+    dump_app.drain_net_queue()
+    dump_app.beast_dump.close()
+    (name,) = os.listdir(dump)
+    check(name.endswith(".zst"), f"--dump-beast wrote {name}, not a .zst chunk")
+    back = beast_io.BeastDeframer().feed(zstd.decompress(open(os.path.join(dump, name), "rb").read()))
+    check([(f.msg, f.timestamp) for f in back] == [(f.msg, f.timestamp) for f in app.frames],
+          "--dump-beast: the dump does not decompress to the frames taken")
+
+    from readsb_tpu_torch.io.api import ApiServer
+
+    api = ApiServer(app)
+    api.update(app.now_ms())
+    body, status, ctype = api.respond("/?all&binCraft&zstd")
+    plain = api.respond("/?all&binCraft")[0]
+    check(status == "200 OK" and ctype == "application/zstd" and zstd.decompress(body) == plain,
+          "&binCraft&zstd does not decompress to the &binCraft answer")
+    log(f"state: {n} aircraft saved in {save_ms:.2f} ms, a fresh App restored them in "
+        f"{load_ms:.2f} ms (its construction) == the writer's, field by field; --dump-beast "
+        f"{len(app.frames)} frames -> {os.path.getsize(os.path.join(dump, name))} B of zstd == the "
+        f"frames taken; &binCraft&zstd {len(body)} B -> {len(plain)} B == &binCraft on {card}")
+    tmp.cleanup()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -1752,6 +2028,10 @@ def main() -> None:
     cpr_phase(card)
     agg_phase(card)
 
+    # --- the SDR sources and persistence on the card ----------------------------
+    sdr_launches, sdr_app = sdr_phase(card)
+    state_phase(card, sdr_app)
+
     entries = [
         {
             "name": "dense_scan_uc8", "route": "cuda",
@@ -1818,10 +2098,11 @@ def main() -> None:
         },
     ]
     for entry in entries:
-        # the launches of the app phase's three counted routes, and of the
-        # network phase's feeder
+        # the launches of the app phase's three counted routes, of the
+        # network phase's feeder and of the SDR phase's three routes
         entry["app_launches"] = app_launches[entry["name"]]
         entry["net_launches"] = net_launches[entry["name"]]
+        entry["sdr_launches"] = sdr_launches[entry["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -337,9 +337,10 @@ def parse_args(argv=None):
 # each option's default is falsy, so an option is given when its value is
 # truthy
 DEFERRED = (
-    ("8c", "persistence and history",
-     ("write_state", "write_prom", "json_globe_index", "heatmap",
-      "globe_history_dir", "db_file", "dump_beast", "dump_beast_dir")),
+    ("8c", "the second half of persistence and history (history traces, the "
+     "globe index and history directory, heatmaps, the aircraft database, "
+     "Prometheus)",
+     ("write_prom", "json_globe_index", "heatmap", "globe_history_dir", "db_file")),
 )
 
 # connector protocols whose lanes need the per-message decoded fields
@@ -383,8 +384,8 @@ def bulk_drain_enabled(args) -> bool:
 
 
 def refuse_deferred(args) -> None:
-    """Raise NotImplementedError for an option or a source whose layer
-    the port does not have yet, naming its ROADMAP item."""
+    """Raise NotImplementedError for an option whose layer the port does
+    not have yet, naming its ROADMAP item."""
     for item, what, dests in DEFERRED:
         for dest in dests:
             if getattr(args, dest):
@@ -392,8 +393,3 @@ def refuse_deferred(args) -> None:
                 raise NotImplementedError(
                     f"{flag}: {what} is ROADMAP item {item} of the port"
                 )
-    if args.device_type not in ("ifile", "none"):
-        raise NotImplementedError(
-            f"--device-type {args.device_type}: the SDR and serial sources are "
-            "ROADMAP item 8e of the port"
-        )

@@ -1,8 +1,10 @@
 """Application entry point: wires source -> demod -> decode -> track -> serve.
 
-The `--device-type ifile` and `--net-only` parts of readsb_tpu's app, on
-the port's demodulator: a single asyncio loop on the host feeds the
-batched device pipeline from the default executor; the network engine
+readsb_tpu's app on the port's demodulator: a single asyncio loop on the
+host feeds the batched device pipeline from the default executor, from
+IQ files (`--device-type ifile`) or an SDR source (`io/sdr.py`: rtlsdr,
+soapy, hackrf, bladerf, ubladerf, plutosdr; modesbeast and gnshulc feed
+the Beast input instead); the network engine
 serves the Beast, raw, SBS, JSON, VRS, ASTERIX and UAT lanes, takes
 Beast, raw, SBS, ASTERIX, UAT, planefinder and gpsd input, and answers
 /re-api queries; periodic coroutines sweep the tracker and write
@@ -14,6 +16,11 @@ wherever its rule picks it (`config.bulk_drain_enabled`), else through the
 scalar per-message path (`drain_net_queue`).  Under the columnar drain,
 --device-arena keeps the tracked fields in the device arena
 (`track/arena.py`) on the app's device.
+
+--write-state persists the aircraft store (`io/state.py`): periodically,
+on the getState / replaceState trigger files and at shutdown, and it is
+restored at startup, as readsb does (readInternalState) and readsb_tpu
+does not.  --dump-beast records network Beast input (`io/beastdump.py`).
 
 The device is explicit.  Under READSB_TPU_PLATFORM=cpu the demodulator
 runs its plain PyTorch versions on the CPU; otherwise it runs on the card,
@@ -152,6 +159,20 @@ class App:
         if args.filter_DF:
             self._df_filter = {int(x) for x in str(args.filter_DF).split(",") if x}
         self.tracker.cpr_focus = args.cpr_focus
+        self.beast_dump = None
+        if args.dump_beast_dir:
+            from ..io.beastdump import BeastDumper
+
+            self.beast_dump = BeastDumper(
+                args.dump_beast_dir, chunk_seconds=args.dump_beast_interval
+            )
+        if args.write_state and os.path.isdir(args.write_state):
+            # startup restore (readInternalState, globe_index.c:3565):
+            # readsb_tpu reads the directory only on replaceState
+            from ..io import state as state_io
+
+            n = state_io.load_state(self.tracker, args.write_state)
+            log.info("restored %d aircraft from %s", n, args.write_state)
 
     # ------------------------------------------------------------------
 
@@ -419,6 +440,196 @@ class App:
             for f in files:
                 f.close()
 
+    async def run_rtlsdr(self) -> None:
+        """Live rtl-sdr capture: reader thread fills UC8 buffers, the
+        asyncio loop batches them to superblock size and feeds the same
+        Demodulator as ifile replay (sdr_rtlsdr.c:233-419 behavior)."""
+        from ..io.sdr import RtlSdrSource
+
+        args = self.args
+        src = RtlSdrSource(
+            device=args.device,
+            gain_db=-10.0 if args.enable_agc else args.gain,
+            freq_hz=args.freq, ppm=args.ppm, biastee=args.enable_biastee,
+            buf_bytes=args.sdr_buffer_size,
+        )
+        await self._run_sdr_source(src, "uc8")
+
+    async def run_soapy(self) -> None:
+        """SoapySDR capture (sdr_soapy.c): CS16 stream fed through the
+        SC16 input path."""
+        from ..io.sdr import SoapySource
+
+        args = self.args
+        src = SoapySource(
+            device_args=args.soapy_device or args.device,
+            gain_db=-10.0 if (args.enable_agc or args.soapy_enable_agc) else args.gain,
+            freq_hz=args.freq, antenna=args.soapy_antenna,
+            bandwidth=args.soapy_bandwidth,
+            gain_elements=list(args.soapy_gain_element or []),
+        )
+        await self._run_sdr_source(src, "sc16")
+
+    async def run_hackrf(self) -> None:
+        """HackRF capture (sdr_hackrf.c): signed-8 IQ rebias to UC8."""
+        from ..io.sdr import HackRfSource
+
+        args = self.args
+        src = HackRfSource(
+            device=args.device if args.device != "0" else None,
+            gain_db=args.gain, freq_hz=args.freq,
+            vga_gain=args.hackrf_vgagain,
+            enable_amp=args.hackrf_enable_ampgain,
+        )
+        await self._run_sdr_source(src, "uc8")
+
+    async def run_bladerf(self, micro: bool = False) -> None:
+        """bladeRF capture (sdr_bladerf.c): SC16Q11 sync stream; micro=True
+        selects the bladeRF 2.0 Micro variant (sdr_ubladerf.c)."""
+        from ..io.sdr import BladeRfSource
+
+        args = self.args
+        src = BladeRfSource(
+            device=args.device if args.device != "0" else None,
+            freq_hz=args.freq, fpga_path=args.bladerf_fpga,
+            decimation=args.bladerf_decimation,
+            bandwidth=args.bladerf_bandwidth,
+            micro=micro, gain_db=args.gain,
+            biastee=args.enable_biastee,
+        )
+        await self._run_sdr_source(src, "sc16q11")
+
+    async def run_pluto(self) -> None:
+        """ADALM-Pluto capture (sdr_plutosdr.c): libiio SC16 stream."""
+        from ..io.sdr import PlutoSource
+
+        args = self.args
+        src = PlutoSource(
+            uri=args.pluto_uri, network=args.pluto_network,
+            freq_hz=args.freq, gain_db=args.gain,
+        )
+        await self._run_sdr_source(src, "sc16")
+
+    def _note_timing(self, demod) -> None:
+        """SDR clock-drift PPM estimation (timingStatistics,
+        readsb.c:754-806): compare the 12 MHz sample clock's elapsed time
+        against the system clock every ~30 s of stream."""
+        now_us = time.monotonic_ns() // 1000
+        sample_ts = demod.scan_global * 5  # 12 MHz units
+        st = getattr(self, "_ppm_state", None)
+        if st is None:
+            self._ppm_state = [now_us, sample_ts]
+            return
+        elapsed_sys = now_us - st[0]
+        if elapsed_sys > 30_000_000:
+            elapsed_sample = sample_ts - st[1]
+            freq_ratio = elapsed_sample / (elapsed_sys * 12.0)
+            self.estimated_ppm = (freq_ratio - 1) * 1e6
+            if abs(self.estimated_ppm) > 600:
+                log.warning(
+                    "SDR ppm out of specification or clock jumped: %.0f",
+                    self.estimated_ppm,
+                )
+            self._ppm_state = [now_us, sample_ts]
+
+    @staticmethod
+    def _open_source(src):
+        """src.open(); a missing library, device or tty ends the run with
+        exit code 1 and its message, without a traceback."""
+        try:
+            return src.open()
+        except (RuntimeError, OSError) as e:
+            log.error("%s", e)
+            raise SystemExit(1) from None
+
+    async def _run_sdr_source(self, src, fmt: str) -> None:
+        """Feed an SDR source's buffers to a Demodulator on the app's
+        device, one superblock at a time, in the executor thread with that
+        device current.  As in readsb_tpu, a source that ends is not
+        flushed: the samples short of a superblock stay unread."""
+        from ..pipeline import Demodulator
+
+        args = self.args
+        self._open_source(src)
+        demod = Demodulator(
+            fmt=fmt, blocks_per_batch=args.blocks_per_batch,
+            k_per_block=args.candidates_per_block,
+            threshold=args.preamble_threshold, nfix=args.nfix_crc,
+            fix_df=args.fix_df, modeac=args.modeac,
+            device=self._demod_device(),
+        )
+        self._demod = demod
+        loop = asyncio.get_event_loop()
+        src.start(loop)
+        pending: list[bytes] = []
+        pending_len = 0
+        want = demod.super_samples * (2 if fmt == "uc8" else 4)
+        try:
+            while not self._exit_event.is_set():
+                data = await src.queue.get()
+                if not data:
+                    log.error("rtl-sdr reader stopped (device lost?)")
+                    break
+                pending.append(data)
+                pending_len += len(data)
+                if pending_len < want:
+                    continue
+                buf = b"".join(pending)
+                pending, pending_len = [buf[want:]], len(buf) - want
+                t0 = time.perf_counter()
+                frames = await loop.run_in_executor(
+                    None, self._on_device, demod.feed, buf[:want]
+                )
+                self.stats_collector.cpu["demod"] += (time.perf_counter() - t0) * 1e3
+                for fr in frames:
+                    self.handle_frame(fr)
+                self._drain_modeac(demod)
+                self._note_timing(demod)
+                if src.dropped_buffers:
+                    self.stats_collector.note_sdr_drops(src.dropped_buffers)
+                    src.dropped_buffers = 0
+        finally:
+            src.close()
+
+    async def run_beast_serial(self, gns: bool = False) -> None:
+        """Beast receiver on a raw serial tty; bytes go through the same
+        deframer/scorer path as network Beast input (sdr_beast.c).
+        gns=True selects the GNS5894/HULC handler (SDR_GNS)."""
+        from ..io.sdr import BeastSerialSource
+
+        args = self.args
+        # default 3M for Beast, 921600 for GNS HULC (sdr_beast.c:126,162-164)
+        baud = args.beast_baudrate or (921_600 if gns else 3_000_000)
+        src = BeastSerialSource(
+            path=args.beast_serial, baud=baud, gns=gns,
+            mlat_timestamps=not args.beast_mlat_off,
+            crc_checks=not args.beast_crc_off,
+            fec=not args.beast_fec_off,
+            filter_df1117=args.beast_df1117_on,
+            filter_df045=args.beast_df045_on,
+            mode_ac=args.beast_modeac or args.modeac,
+        )
+        fd = self._open_source(src)
+        conn = self._beast_input_factory()()
+        loop = asyncio.get_event_loop()
+        ready = asyncio.Event()
+        loop.add_reader(fd, ready.set)
+        try:
+            while not self._exit_event.is_set():
+                await ready.wait()
+                ready.clear()
+                try:
+                    data = os.read(fd, 65536)
+                except BlockingIOError:
+                    continue
+                if not data:
+                    await asyncio.sleep(0.05)
+                    continue
+                await conn.feed(data)
+        finally:
+            loop.remove_reader(fd)
+            src.close()
+
     def _drain_modeac(self, demod) -> None:
         """Forward Mode A/C pseudo-messages into the tracker."""
         if not demod.modeac_msgs:
@@ -446,8 +657,11 @@ class App:
         class BeastIn(InputConnection):
             def __init__(self):
                 # columnar drain: the native columnar deframer (readBeast
-                # analog) feeds column batches straight to the drain
-                self.cols_mode = app.bulk is not None
+                # analog) feeds column batches straight to the drain.
+                # --dump-beast needs per-frame BeastFrame records, so it
+                # takes the object deframer (the frames still drain through
+                # the columnar path via drain_bulk)
+                self.cols_mode = app.bulk is not None and app.beast_dump is None
                 self.deframer = (
                     beast_io.ColumnarDeframer() if self.cols_mode
                     else beast_io.BeastDeframer()
@@ -758,6 +972,8 @@ class App:
         locks (net_io.c:5365-5474); here frames accumulate per tick and
         the CRC stage runs as ONE vectorized batch (drain_net_queue).
         """
+        if self.beast_dump is not None:
+            self.beast_dump.record(bf, self.now_ms())
         self._net_queue.append(bf)
         if len(self._net_queue) >= 8192:
             self.drain_net_queue()
@@ -872,6 +1088,7 @@ class App:
     async def run_periodic(self) -> None:
         args = self.args
         last_json = 0.0
+        last_state = time.time()
         last_vrs = 0.0
         display = None
         if args.interactive and not args.no_interactive:
@@ -928,9 +1145,16 @@ class App:
                     self.clients_json(now),
                     os.path.join(args.write_json, "clients.json"),
                 )
+                self._check_state_triggers(now)
             self.stats_collector.cpu["background"] += (
                 time.perf_counter() - _bg_t0
             ) * 1e3
+            if (args.write_state and not args.write_state_only_on_exit
+                    and time.time() - last_state >= args.write_state_every):
+                last_state = time.time()
+                from ..io import state as state_io
+
+                state_io.save_state(self.tracker, args.write_state, now)
             # arena maintenance last, as readsb_tpu orders it
             if self.arena is not None:
                 self.arena.sweep(now)
@@ -998,6 +1222,38 @@ class App:
         except (OSError, NotImplementedError) as e:
             log.warning("cmd.sock unavailable: %s", e)
 
+
+    def _check_state_triggers(self, now: int) -> None:
+        """getState / replaceState trigger files: zero-downtime state
+        export / hot-swap (readsb.c:2412-2485, replicate_state.sh)."""
+        from ..io import state as state_io
+
+        jd = self.args.write_json
+        if not jd:
+            return
+        get_dir = os.path.join(jd, "getState")
+        trig = os.path.join(get_dir, "writeState")
+        if os.path.exists(trig):
+            try:
+                txt = open(trig).read().strip()
+                if len(txt) == 2:  # single blob by hex suffix
+                    state_io.save_blob(self.tracker, get_dir, int(txt, 16))
+                else:
+                    state_io.save_state(self.tracker, get_dir, now)
+            finally:
+                # unlink after writing: shell scripts poll for completion
+                try:
+                    os.unlink(trig)
+                except OSError:
+                    pass
+            log.warning("getState: state written to %s", get_dir)
+        rep_dir = os.path.join(jd, "replaceState")
+        if os.path.isdir(rep_dir):
+            n = state_io.load_state(self.tracker, rep_dir)
+            import shutil
+
+            shutil.rmtree(rep_dir, ignore_errors=True)
+            log.warning("replaceState: %d aircraft hot-swapped in", n)
 
     def clients_json(self, now: int) -> dict:
         """clients.json: connected-client inventory (json_out.c:2247)."""
@@ -1256,7 +1512,8 @@ class App:
         threading.Thread(target=watch, daemon=True).start()
 
     def _install_signals(self) -> None:
-        """SIGTERM/SIGINT -> ordered shutdown (readsb.c:2649, 2917-3011)."""
+        """SIGTERM/SIGINT -> ordered shutdown with a final state write
+        (readsb.c:2649, 2917-3011)."""
         import signal as _signal
 
         loop = asyncio.get_event_loop()
@@ -1307,6 +1564,22 @@ class App:
                 await self.run_ifile()
                 if self.args.net or self.args.net_only:
                     await asyncio.sleep(0.2)  # let outputs flush
+            elif self.args.device_type == "rtlsdr":
+                await self.run_rtlsdr()
+            elif self.args.device_type == "soapy":
+                await self.run_soapy()
+            elif self.args.device_type == "modesbeast":
+                await self.run_beast_serial()
+            elif self.args.device_type == "gnshulc":
+                await self.run_beast_serial(gns=True)
+            elif self.args.device_type == "hackrf":
+                await self.run_hackrf()
+            elif self.args.device_type == "bladerf":
+                await self.run_bladerf()
+            elif self.args.device_type == "ubladerf":
+                await self.run_bladerf(micro=True)
+            elif self.args.device_type == "plutosdr":
+                await self.run_pluto()
             elif self.args.net or self.args.net_only:
                 await self._exit_event.wait()
             else:
@@ -1314,7 +1587,7 @@ class App:
                 return 1
         finally:
             # ordered shutdown (readsb.c:2917-3011): stop periodic work,
-            # drain pending decode, flush, close
+            # drain pending decode, final state write, flush, close
             self._exiting = True
             if (
                 getattr(self, "api_server", None) is not None
@@ -1334,6 +1607,13 @@ class App:
                 json_out.write_json_atomic(
                     doc, os.path.join(self.args.write_json, "aircraft.json")
                 )
+            if self.args.write_state:
+                from ..io import state as state_io
+
+                state_io.save_state(self.tracker, self.args.write_state, self.now_ms())
+                log.info("final state written to %s", self.args.write_state)
+            if self.beast_dump is not None:
+                self.beast_dump.close()
             for svc in self.net.outputs.values():
                 svc.flush()
             await self.net.close()

@@ -17,8 +17,8 @@ app's periodic loop rebuilds it and swaps the reference atomically.
 Box queries bisect the sorted latitude column; circle queries run a
 vectorized haversine over the position subset.
 
-A copy of readsb_tpu's API server.  `&binCraft&zstd` is answered 501 with
-a JSON error: the port has no zstd codec until ROADMAP item 8c brings one.
+A copy of readsb_tpu's API server.  `&binCraft&zstd` compresses with the
+port's zstd codec (`io/zstd.py`) at readsb_tpu's level.
 """
 
 from __future__ import annotations
@@ -37,10 +37,6 @@ from ..track.tracker import TRACK_EXPIRE, bearing, greatcircle
 from .json_out import aircraft_dict
 
 BINCRAFT_VERSION = 20240218
-ZSTD_UNAVAILABLE = (
-    b'{"error": "zstd compression is ROADMAP item 8c of the port; '
-    b'ask for &binCraft without &zstd"}'
-)
 
 
 class ApiSnapshot:
@@ -351,8 +347,10 @@ class ApiServer:
             payload += b"".join(snap.bin[i] for i in idx)
             ctype = "application/octet-stream"
             if "zstd" in q:
-                # no zstd codec here: compression comes with ROADMAP item 8c
-                return ZSTD_UNAVAILABLE, "501 Not Implemented", "application/json"
+                from . import zstd
+
+                payload = zstd.compress(payload, 1)
+                ctype = "application/zstd"
             return payload, "200 OK", ctype
 
         parts = []

@@ -8,7 +8,8 @@ degree) the farthest position (distance, lat, lon, alt) is kept, and a
 jump of >50 nmi beyond the 24h per-direction record from a
 not-yet-reliable position is rejected.  outline.json is the per-degree
 max over all intervals (generateOutlineJson, json_out.c:1931-1968).
-Persisting the table (rangeDirs.gz) comes with ROADMAP item 8c.
+`save` / `load` persist the table as rangeDirs.gz beside the state blobs,
+in readsb_tpu's layout.
 
 Structure-of-arrays numpy tables: the sweep over 64x360 is a vectorized
 reduction rather than a scalar loop.
@@ -16,7 +17,9 @@ reduction rather than a scalar loop.
 
 from __future__ import annotations
 
+import gzip
 import json
+import struct
 
 import numpy as np
 
@@ -80,3 +83,29 @@ class RangeOutline:
         return json.dumps(
             {"actualRange": {"last24h": {"points": points}}}, separators=(",", ":")
         ).encode()
+
+    # -- persistence (rangeDirs.gz analog; own little-endian layout) --
+
+    _MAGIC = b"RTPU-RANGEDIRS1\n"
+
+    def save(self, path: str) -> None:
+        with gzip.open(path, "wb") as f:
+            f.write(self._MAGIC)
+            f.write(struct.pack("<iq", self.last_ival, self.duration_ms))
+            for arr in (self.distance, self.lat, self.lon, self.alt):
+                f.write(arr.tobytes())
+
+    def load(self, path: str) -> bool:
+        try:
+            with gzip.open(path, "rb") as f:
+                if f.read(len(self._MAGIC)) != self._MAGIC:
+                    return False
+                self.last_ival, self.duration_ms = struct.unpack("<iq", f.read(12))
+                n = IVALS * BUCKETS
+                self.distance = np.frombuffer(f.read(4 * n), dtype=np.float32).reshape(IVALS, BUCKETS).copy()
+                self.lat = np.frombuffer(f.read(4 * n), dtype=np.float32).reshape(IVALS, BUCKETS).copy()
+                self.lon = np.frombuffer(f.read(4 * n), dtype=np.float32).reshape(IVALS, BUCKETS).copy()
+                self.alt = np.frombuffer(f.read(4 * n), dtype=np.int32).reshape(IVALS, BUCKETS).copy()
+            return True
+        except (OSError, struct.error, ValueError):
+            return False

@@ -117,8 +117,9 @@ def _scan_span(demod):
     return demod.seg_valid if hasattr(demod, "seg_valid") else demod.super_samples
 
 
-def run_both(argv, monkeypatch):
-    """Run both apps' run_ifile() over argv; return both results.
+def run_both(argv, monkeypatch, run=lambda app: app.run_ifile()):
+    """Run both apps over argv, each through run(app) (a coroutine; by
+    default run_ifile()); return both results.
 
     Every accepted frame is recorded on its way into decode_frame.  A
     port frame whose signal power differs from readsb_tpu's is noted (its
@@ -142,7 +143,7 @@ def run_both(argv, monkeypatch):
     monkeypatch.setattr(jax_main, "decode_frame", ref_decode)
     monkeypatch.setattr(main, "decode_frame", port_decode)
     for app in (ja, pa):  # readsb_tpu's first: the port's frames are held to its
-        asyncio.run(app.run_ifile())
+        asyncio.run(run(app))
         if "--modeac" in argv:  # what run_periodic does each tick
             app.tracker.match_ac(app.now_ms())
     want, got = _results(ja, jax_json, jax_stats), _results(pa, json_out, stats)

@@ -143,17 +143,24 @@ DEFERRED = [
      ("rtlsdr", "soapy", "modesbeast", "gnshulc", "hackrf", "bladerf", "ubladerf", "plutosdr")]
 
 
+# the options of item 8c's first half (state and the Beast dump), ported
+PORTED_8C = ("--write-state", "--dump-beast")
+
+
 @pytest.mark.parametrize("extra,item", DEFERRED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_deferred_options_raise_naming_their_item(extra, item, capture, monkeypatch):
-    """An option of a layer still to port (items 8c and 8e) raises naming
-    its item.  The options of the ported items parse as readsb_tpu's do:
-    those of item 8b beside --net, on whichever drain readsb_tpu's rule
-    picks (the columnar one is item 8d), and --net-bulk-drain (8d) and
-    --device-arena (10) themselves."""
+    """An option of a layer still to port (the second half of item 8c)
+    raises naming its item.  The options of the ported items parse as
+    readsb_tpu's do: those of item 8b beside --net, on whichever drain
+    readsb_tpu's rule picks (the columnar one is item 8d), --net-bulk-drain
+    (8d), --device-arena (10), every --device-type (8e) and the options of
+    8c's first half, --write-state and --dump-beast."""
     monkeypatch.setenv("READSB_TPU_PLATFORM", "cpu")
     argv = ["--device-type", "ifile", "--ifile", capture, *extra]
-    if item in ("8d", "10"):
-        assert vars(main.parse_args(argv)) == vars(jax_parse_args(argv))
+    if item in ("8d", "10", "8e") or extra[0] in PORTED_8C:
+        args = main.parse_args(argv)
+        assert vars(args) == vars(jax_parse_args(argv))
+        assert args.device_type == (extra[1] if item == "8e" else "ifile")
         return
     if item != "8b":
         with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):

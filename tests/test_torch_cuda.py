@@ -522,3 +522,108 @@ def test_arena_refuses_a_batch_on_another_device(dev):
         arena_mod.arena_update(st, arena_mod.upload_batch(cols, "cpu"), 1)
     st, ys = arena_mod.arena_update(st, arena_mod.upload_batch(cols, dev), 1)
     assert ys.device.type == "cuda" and tuple(ys.shape) == (1, 512, 12)
+
+
+# --- the SDR sources and persistence ------------------------------------------
+
+
+class FakeSource:
+    """The interface of io/sdr.py's sources (open, start(loop), queue,
+    dropped_buffers, close) over a capture's bytes: SDR_BUF_BYTES pieces,
+    then the b"" end marker.  Lossless: it waits for room in the queue."""
+
+    def __init__(self, data: bytes):
+        import asyncio
+
+        from readsb_tpu_torch.io.sdr import SDR_BUF_BYTES, SDR_N_BUFFERS
+
+        self.data, self.piece = data, SDR_BUF_BYTES
+        self.queue = asyncio.Queue(maxsize=SDR_N_BUFFERS)
+        self.dropped_buffers = 0
+        self.opened = self.closed = False
+        self.task = None
+
+    def open(self) -> None:
+        self.opened = True
+
+    def start(self, loop) -> None:
+        self.task = loop.create_task(self._feed())
+
+    async def _feed(self) -> None:
+        for i in range(0, len(self.data), self.piece):
+            await self.queue.put(self.data[i:i + self.piece])
+        await self.queue.put(b"")
+
+    def close(self) -> None:
+        self.closed = True
+
+
+def _sdr_app(device: str, fmt_argv: list[str], data: bytes, fmt: str, monkeypatch, extra=()):
+    """The port's App on `device` through _run_sdr_source over `data`."""
+    import asyncio
+
+    from readsb_tpu_torch.app import main
+
+    if device == "cpu":
+        monkeypatch.setenv("READSB_TPU_PLATFORM", "cpu")
+    else:
+        monkeypatch.delenv("READSB_TPU_PLATFORM", raising=False)
+    app = main.App(main.parse_args([*fmt_argv, "--blocks-per-batch", "1", *extra]))
+    app.epoch_ms = 1_760_000_000_000
+    frames = []
+
+    def keep(fr, epoch_ms, _decode=main.decode_frame):
+        frames.append((fr.msg, fr.timestamp, fr.phase, fr.score, fr.signal_power))
+        return _decode(fr, epoch_ms=epoch_ms)
+
+    async def go():
+        app._exit_event = asyncio.Event()
+        await asyncio.wait_for(app._run_sdr_source(FakeSource(data), fmt), 300)
+
+    with monkeypatch.context() as m:
+        m.setattr(main, "decode_frame", keep)
+        asyncio.run(go())
+    return app, frames
+
+
+SDR_ROUTES = {"uc8": (["--device-type", "rtlsdr"], 1.0),
+              "sc16": (["--device-type", "soapy"], 1.0),
+              "sc16q11": (["--device-type", "bladerf"], 1 / 16)}
+
+
+def _sdr_bytes(route: str) -> bytes:
+    from readsb_tpu_torch.synth import build_traffic_capture, quantize_sc16, quantize_uc8
+
+    iq = build_traffic_capture(1.0, 8, 71).render_iq() * SDR_ROUTES[route][1]
+    return (quantize_uc8(iq) if route == "uc8" else quantize_sc16(iq)).tobytes()
+
+
+@pytest.mark.parametrize("route", list(SDR_ROUTES))
+def test_sdr_source_on_the_card_equals_the_cpu(dev, route, monkeypatch):
+    from readsb_tpu_torch.io import json_out
+
+    data = _sdr_bytes(route)
+    runs = [_sdr_app(d, SDR_ROUTES[route][0], data, route, monkeypatch) for d in ("cuda", "cpu")]
+    (card, card_frames), (cpu, cpu_frames) = runs
+    assert card._demod.device.type == "cuda" and cpu._demod.device.type == "cpu"
+    assert card_frames == cpu_frames and len(card_frames) > 50
+    now = card.now_ms()
+    assert now == cpu.now_ms()
+    assert (json_out.generate_aircraft_json(card.tracker, now, card.messages)
+            == json_out.generate_aircraft_json(cpu.tracker, now, cpu.messages))
+
+
+def test_state_saved_on_the_card_loads_into_a_fresh_card_app(dev, tmp_path, monkeypatch):
+    from readsb_tpu_torch.app import main
+    from readsb_tpu_torch.io import state as state_io
+
+    d = str(tmp_path / "state")
+    app, _ = _sdr_app("cuda", SDR_ROUTES["uc8"][0], _sdr_bytes("uc8"), "uc8", monkeypatch,
+                      extra=("--write-state", d))
+    n = state_io.save_state(app.tracker, d, app.now_ms())
+    assert n == len(app.tracker.aircraft) >= 8
+    monkeypatch.delenv("READSB_TPU_PLATFORM", raising=False)
+    fresh = main.App(main.parse_args(["--device-type", "rtlsdr", "--write-state", d]))
+    assert fresh.device.type == "cuda"
+    assert (sorted(repr(a) for a in fresh.tracker.aircraft.values())
+            == sorted(repr(a) for a in app.tracker.aircraft.values()))

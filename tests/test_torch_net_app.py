@@ -17,8 +17,9 @@ of the port alone, so no JAX compile is paid.
   Each App's clock (`now_ms`) is fixed to one value, since the network
   inputs stamp messages with the host's clock.
 - API: both packages' ApiServer over that tracker state answer every
-  query form with equal bodies, `ptime` set aside; `&zstd` gets the
-  port's 501; `aircraft_json_bytes_from_api` gives equal bytes.
+  query form with equal bodies, `ptime` set aside; `&binCraft&zstd`
+  decompresses to readsb_tpu's answer and to the uncompressed one;
+  `aircraft_json_bytes_from_api` gives equal bytes.
 - The JAERO altitude gate: the one named difference of the port's
   tracker (test_torch_track.PORT_ONLY_FIELDS).
 - End to end, the port alone over 127.0.0.1: a feeder App demodulates a
@@ -406,10 +407,17 @@ def test_api_queries_equal_reference(query, api_servers):
 
 
 def test_api_zstd_is_501_and_the_byte_join_equals_reference(api_servers):
+    """&binCraft&zstd is compressed by the port's codec (no longer 501):
+    zstandard decodes it to readsb_tpu's answer and to the plain one."""
+    import zstandard
+
     ps, js, _ = api_servers
     body, status, ctype = ps.respond("/?all&binCraft&zstd")
-    assert status == "501 Not Implemented" and ctype == "application/json"
-    assert "ROADMAP item 8c" in json.loads(body)["error"]
+    jbody, jstatus, jctype = js.respond("/?all&binCraft&zstd")
+    assert (status, ctype) == (jstatus, jctype) == ("200 OK", "application/zstd")
+    plain = zstandard.ZstdDecompressor().decompress(body)
+    assert plain == zstandard.ZstdDecompressor().decompress(jbody)
+    assert plain == ps.respond("/?all&binCraft")[0] and len(plain) > 1000
     assert ps.request_count == js.request_count + 1
     pj = json_out.aircraft_json_bytes_from_api(ps.snapshot, 1234)
     assert pj == jax_json.aircraft_json_bytes_from_api(js.snapshot, 1234)

@@ -39,6 +39,11 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_the_sdr_and_persistence_modules_are_scanned():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {f"readsb_tpu_torch/io/{m}.py" for m in ("sdr", "zstd", "state", "beastdump")} <= scanned
+
+
 @pytest.mark.parametrize(
     "make",
     [lambda: Demodulator(), lambda: MultiDemodulator(2),
