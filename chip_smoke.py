@@ -73,6 +73,22 @@ and then the SDR sources and persistence:
                    fresh card App, --dump-beast decompresses to the frames
                    taken, and &binCraft&zstd to the plain answer
 
+and then history:
+
+  history          (a) App.amain over the network phase's scene (8 uc8
+                   receivers x 1.0 s) with --json-globe-index
+                   --json-trace-interval 1 --globe-history-dir --heatmap 1
+                   --write-prom --db-file --write-state: trace files, globe
+                   tiles, heatmap, Prometheus text, receivers,
+                   aircraft.json and the state directory equal its CPU run,
+                   and only kernels #1 and #2 launch; (b) the aggregator
+                   phase's 240,000 frames with --json-globe-index
+                   --write-state --write-prom --db-file, host only and with
+                   --device-arena, card against CPU, no kernel launched;
+                   the trace sweep, the writers and state with traces timed
+                   at 10,000 aircraft, and the aggregator's frames/s with
+                   and without --json-globe-index
+
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
@@ -962,13 +978,13 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
-def agg_replay(chunks: list[bytes], device: str, arena: bool, hooks=None):
-    """One aggregator App fed the chunks through BeastIn.feed (the
-    cols_mode path, drain_cols), with a maintenance tick (drain,
-    materialize, materialize_arena, the arena's sweep) every
+def agg_replay(chunks: list[bytes], device: str, arena: bool, hooks=None, extra=()):
+    """One aggregator App (AGG_ARGV and `extra`) fed the chunks through
+    BeastIn.feed (the cols_mode path, drain_cols), with a maintenance tick
+    (drain, materialize, materialize_arena, the arena's sweep) every
     AGG_TICK_CHUNKS chunks and at the end.  The App's clock reads the
     stream's synthetic time.  Returns (app, host seconds)."""
-    app = make_app(AGG_ARGV + (["--device-arena"] if arena else []), device)
+    app = make_app(AGG_ARGV + (["--device-arena"] if arena else []) + list(extra), device)
     check((app.arena is not None) == arena and app.bulk is not None,
           "the aggregator did not take the columnar drain (and the arena)")
     if hooks is not None:
@@ -1049,11 +1065,12 @@ def cpr_phase(card: str) -> None:
         f"{oks[0]}, surface {surf_ok}, relative {rel_ok} on {card}")
 
 
-def agg_phase(card: str) -> None:
+def agg_phase(card: str) -> list[bytes]:
     """The aggregator on the card: the columnar drain with and without
     --device-arena; the arena's state and device CPR fixes on the card
     equal a CPU arena's over the same updates and sweeps; aircraft.json
-    with the arena equals aircraft.json without it; readings."""
+    with the arena equals aircraft.json without it; readings.  Returns the
+    stream's chunks."""
     from readsb_tpu_torch.app import bulk_drain
     from readsb_tpu_torch.track import arena as arena_mod
 
@@ -1232,6 +1249,7 @@ def agg_phase(card: str) -> None:
         f"{card}")
     log("agg largest device items per update: " + "; ".join(
         f"{ms / len(updates):.3f} ms x{c // len(updates)} {k[:50]}" for ms, c, k in top))
+    return chunks
 
 
 # the SDR phase: one receiver at full width through App._run_sdr_source,
@@ -1489,6 +1507,269 @@ def state_phase(card: str, app) -> None:
         f"{len(app.frames)} frames -> {os.path.getsize(os.path.join(dump, name))} B of zstd == the "
         f"frames taken; &binCraft&zstd {len(body)} B -> {len(plain)} B == &binCraft on {card}")
     tmp.cleanup()
+
+
+# the history phase: the app with every history option.  Part (a): the
+# network phase's scene (8 uc8 receivers x 1.0 s, 104 aircraft) through
+# App.amain; part (b): the aggregator phase's stream through the columnar
+# drain, host only and with --device-arena
+HIST_MIL = 0x3F4ABC  # a military address (track/acdb.MIL_RANGES), in the database only
+HIST_HALF_HOUR = 30 * 60_000
+# Prometheus lines that read the host's clock, or a window that its ticks
+# pace: the signal since the last stats tick, the trace sweeps
+HIST_HOST_CLOCK = ("readsb_cpu_", "readsb_uptime", "readsb_signal_", "readsb_tracewrites_")
+HIST_BY_TICK = ("stats.json", "clients.json", "receivers.json")  # rewritten each tick
+
+
+def write_db(path: str, addrs) -> None:
+    """A seeded tar1090 aircraft.csv.gz over `addrs`."""
+    import gzip
+
+    rng = np.random.default_rng(29)
+    types = ("A320", "B738", "E190", "C172")
+    with gzip.open(path, "wt") as f:
+        for addr in addrs:
+            f.write(f"{addr:06X};N{addr & 0xFFFFF:05X};{types[int(rng.integers(4))]};"
+                    f"{'01'[int(rng.integers(2))]}{'01'[int(rng.integers(2))]};;2004;Op\n")
+
+
+def history_files(root: str, skip=()) -> dict[str, bytes]:
+    """{relative path: content} under root, gunzipped (trace files,
+    heatmaps) or zstd-decompressed (globe tiles): compressed bytes need
+    not be equal.  State blobs and names in `skip` are left out."""
+    import gzip
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            rel = os.path.relpath(os.path.join(d, n), root)
+            if rel.split(os.sep)[0] == "state" or n in skip:
+                continue
+            data = open(os.path.join(d, n), "rb").read()
+            if data[:2] == b"\x1f\x8b":
+                data = gzip.decompress(data)
+            elif data[:4] == b"\x28\xb5\x2f\xfd":
+                data = zstd.decompress(data)
+            out[rel] = data
+    return out
+
+
+def reloaded_state(directory: str) -> tuple:
+    """A state directory loaded into a fresh tracker: (aircraft, each
+    aircraft's repr without its trace, {addr: the trace's points}), and
+    the load's ms."""
+    import dataclasses
+
+    from readsb_tpu_torch.track.tracker import Tracker
+
+    t = Tracker()
+    t0 = time.perf_counter()
+    n = state_io.load_state(t, directory)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    full = {a.addr: [dataclasses.asdict(s) for s in a.trace.full()]
+            for a in t.aircraft.values() if a.trace is not None}
+    for a in t.aircraft.values():
+        a.trace = None
+    return (n, sorted(repr(a) for a in t.aircraft.values()), full), load_ms
+
+
+def prom_lines(text: str) -> list[str]:
+    return [ln for ln in text.splitlines() if not ln.split(" ")[0].startswith(HIST_HOST_CLOCK)]
+
+
+def history_outputs(app, root: str, now: int) -> dict:
+    """What the history writers give over `app` at `now`: the exit sweep's
+    trace files, the globe tiles, the half hour's heatmap, the Prometheus
+    text, the state directory reloaded; each writer's ms on the host clock."""
+    from readsb_tpu_torch.io import history as history_io
+    from readsb_tpu_torch.io import stats as stats_io
+
+    os.makedirs(os.path.join(root, "traces"))
+    os.makedirs(os.path.join(root, "tiles"))
+    ms = {}
+    t0 = time.perf_counter()
+    ms["files"], _ = history_io.write_traces(app.tracker, os.path.join(root, "traces"), now,
+                                             time_budget_s=None)
+    ms["traces"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ms["n_tiles"] = history_io.write_globe_bincraft(app.tracker, os.path.join(root, "tiles"), now)
+    ms["tiles"] = (time.perf_counter() - t0) * 1e3
+    start = now // HIST_HALF_HOUR * HIST_HALF_HOUR
+    t0 = time.perf_counter()
+    history_io.write_heatmap(app.tracker, os.path.join(root, "heat"), start,
+                             start + HIST_HALF_HOUR, interval_ms=1000)
+    ms["heatmap"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    prom = stats_io.generate_prom(app, now)
+    ms["prom"] = (time.perf_counter() - t0) * 1e3
+    sd = os.path.join(root, "state")
+    t0 = time.perf_counter()
+    state_io.save_state(app.tracker, sd, now)
+    ms["save"] = (time.perf_counter() - t0) * 1e3
+    ms["state_bytes"] = sum(os.path.getsize(os.path.join(sd, n)) for n in os.listdir(sd))
+    st, ms["load"] = reloaded_state(sd)
+    return {"files": history_files(root), "prom": prom_lines(prom), "state": st,
+            "receivers": app.tracker.receivers.receivers_json(now),
+            "aircraft.json": json_out.generate_aircraft_json(app.tracker, now, app.messages),
+            "ms": ms}
+
+
+def hist_ifile_run(paths: list[str], device: str, d: str, db: str) -> dict:
+    """Part (a): App.amain over the IQ files on `device` with every history
+    option; the launch counts are set to 0 just before and read just after."""
+    out = os.path.join(d, f"ifile_{device}")
+    argv = ["--device-type", "ifile", "--ifile", ",".join(paths), "--blocks-per-batch", "1",
+            "--write-json", os.path.join(out, "json"), "--json-globe-index",
+            "--json-trace-interval", "1", "--globe-history-dir", os.path.join(out, "hist"),
+            "--heatmap", "1", "--write-prom", os.path.join(out, "status.prom"),
+            "--db-file", db, "--write-state", os.path.join(out, "state")]
+    app = make_app(argv, device)
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    rc = asyncio.run(app.amain())
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(rc == 0, f"history: the --ifile App on {device} exited {rc}")
+    now = app.now_ms()
+    res = history_outputs(app, os.path.join(d, f"writers_{device}"), now)
+    # the periodic block's globe tiles carry the clock of their tick
+    res["json"] = {k: v for k, v in history_files(os.path.join(out, "json"), HIST_BY_TICK).items()
+                   if not k.startswith("globe_")}
+    res["exit_state"] = reloaded_state(os.path.join(out, "state"))[0]
+    check(os.path.exists(os.path.join(out, "status.prom")), f"history: no status.prom on {device}")
+    res.update(app=app, launches=launches, wall=wall)
+    return res
+
+
+def history_phase(card: str, chunks: list[bytes]) -> dict[str, int]:
+    """History on the card: (a) the --ifile App on 8 uc8 receivers with
+    every history option equals its CPU run, launching kernels #1 and #2
+    only; (b) the aggregator's 240,000 frames with --json-globe-index,
+    --write-state, --write-prom and --db-file, host only and with
+    --device-arena, equal between the card and the CPU, launching no
+    kernel; readings at 10,000 aircraft.  Returns part (a)'s launches."""
+    from readsb_tpu_torch.io import history as history_io
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_hist_")
+    d = tmp.name
+    paths = [os.path.join(d, f"hist{c}.uc8.dat") for c in range(NET_RECEIVERS)]
+    jobs = [(paths[c], "uc8", NET_S, 700 + c, 0x600000 + c * 0x10000)
+            for c in range(NET_RECEIVERS)]
+    scene = sorted(set().union(*render_captures(jobs)))
+    db = os.path.join(d, "aircraft.csv.gz")
+    write_db(db, [int(h, 16) for h in scene] + [HIST_MIL])
+
+    # (a) the demodulator path
+    card_run = hist_ifile_run(paths, "cuda", d, db)
+    cpu_run = hist_ifile_run(paths, "cpu", d, db)
+    check_launched(card_run["launches"], APP_ROUTES["multi"], "the history phase's --ifile App")
+    for k in ("files", "prom", "state", "receivers", "aircraft.json", "json", "exit_state"):
+        check(card_run[k] == cpu_run[k], f"history (a): {k} on the card differs from the CPU run: "
+              + first_diff(card_run[k], cpu_run[k]))
+    acs = {a["hex"]: a for a in card_run["aircraft.json"]["aircraft"]}
+    with_db = sum(1 for a in acs.values() if a.get("r", "").startswith("N") and "t" in a)
+    flagged = sum(1 for a in acs.values() if a.get("dbFlags"))
+    # the trace files of amain's periodic and exit sweeps (which left none dirty)
+    traces_a = [k for k in card_run["json"] if k.startswith("traces" + os.sep)]
+    check(with_db >= len(scene) - 2 and flagged > 0 and len(traces_a) >= 2 * 0.9 * len(scene),
+          f"history (a): {with_db} aircraft with the database's fields, {len(traces_a)} "
+          f"trace files for {len(scene)} scene aircraft")
+    check(card_run["state"][0] == card_run["exit_state"][0] == len(card_run["app"].tracker.aircraft)
+          and len(card_run["state"][2]) >= 0.9 * len(scene),
+          "history (a): the state directory lost aircraft or traces")
+    log(f"history (a): --ifile App.amain on {NET_RECEIVERS} uc8 receivers x {NET_S} s "
+        f"({len(scene)} scene aircraft) with --write-json --json-globe-index "
+        f"--json-trace-interval 1 --globe-history-dir --heatmap 1 --write-prom --db-file "
+        f"--write-state: {len(traces_a)} trace files, {card_run['ms']['n_tiles']} globe tiles, "
+        f"the heatmap, the Prometheus text (host-clock lines aside), receivers, aircraft.json "
+        f"({with_db} with r and t, {flagged} with dbFlags), the exit's state directory (reloaded: "
+        f"{card_run['exit_state'][0]} aircraft, {len(card_run['exit_state'][2])} traces) == CPU "
+        f"run; launches={card_run['launches']}; wall {card_run['wall']:.3f} s on the card, "
+        f"{cpu_run['wall']:.3f} s on the CPU, on {card}")
+
+    # (b) the aggregator path: parity, card against CPU, host only and with the arena
+    n_frames = AGG_AIRCRAFT * AGG_PER_AIRCRAFT
+    db_b = os.path.join(d, "aircraft_agg.csv.gz")
+    write_db(db_b, [0xA00000 + ac for ac in range(AGG_AIRCRAFT)] + [HIST_MIL])
+    extra = ["--json-globe-index", "--write-state", os.path.join(d, "agg_state"),
+             "--write-prom", os.path.join(d, "agg.prom"), "--db-file", db_b]
+    runs = {}
+    for arena in (False, True):
+        for device in ("cuda", "cpu"):
+            reset_counts()
+            app, wall = agg_replay(chunks, device, arena, extra=extra)
+            if device == "cuda":
+                check_launched(read_counts(), (), "the history phase's aggregator")
+            check(app.messages == n_frames and app.tracker.keep_traces,
+                  f"history (b): the aggregator took {app.messages} of {n_frames}")
+            now = app.now_ms()
+            runs[arena, device] = (app, wall, history_outputs(
+                app, os.path.join(d, f"agg_{int(arena)}_{device}"), now))
+    for arena in (False, True):
+        got, want = runs[arena, "cuda"][2], runs[arena, "cpu"][2]
+        for k in ("files", "prom", "state", "aircraft.json"):
+            check(got[k] == want[k], f"history (b){' with the arena' * arena}: {k} on the card "
+                  f"differs from the CPU run: " + first_diff(got[k], want[k]))
+    host, dev = runs[False, "cuda"][2], runs[True, "cuda"][2]
+    check(dev["files"] == host["files"] and dev["state"][2] == host["state"][2],
+          "history (b): the traces with --device-arena differ from the host path's")
+    n_traces = len(host["state"][2])
+    check(n_traces == AGG_AIRCRAFT and host["ms"]["files"] == AGG_AIRCRAFT,
+          f"history (b): {n_traces} traces, {host['ms']['files']} written, of {AGG_AIRCRAFT}")
+
+    # the periodic sweep: the default budget of 0.05 s per tick, over every
+    # trace made dirty again, as readsb_tpu's run_periodic calls it
+    app = runs[True, "cuda"][0]
+    traced = [a.trace for a in app.tracker.aircraft.values() if a.trace is not None]
+    for tr in traced:
+        tr.dirty = True
+    per_tick, cursor = [], 0
+    bdir = os.path.join(d, "budgeted")
+    os.makedirs(bdir)
+    t0 = time.perf_counter()
+    while any(tr.dirty for tr in traced):
+        n, cursor = history_io.write_traces(app.tracker, bdir, app.now_ms(), cursor=cursor)
+        per_tick.append(n)
+        check(len(per_tick) < 10 * AGG_AIRCRAFT, "history (b): the budgeted sweep does not end")
+    budget_s = time.perf_counter() - t0
+
+    # frames/s of the aggregator with and without --json-globe-index (host only)
+    walls = {False: [], True: []}
+    for _ in range(3):
+        for globe_index in (False, True):
+            _, wall = agg_replay(chunks, "cuda", False,
+                                 extra=["--json-globe-index"] if globe_index else [])
+            walls[globe_index].append(wall)
+    fps = {k: n_frames / statistics.median(v) for k, v in walls.items()}
+    m = dev["ms"]
+    log(f"history (b): the aggregator's {n_frames} frames of {AGG_AIRCRAFT} aircraft with "
+        f"--json-globe-index --write-state --write-prom --db-file: the exit sweep's trace files, "
+        f"the globe tiles, the heatmap of the half hour, the Prometheus text (host-clock lines "
+        f"aside), aircraft.json and the reloaded state on the card == the CPU run, host only "
+        f"and with --device-arena; the arena's traces == the host path's; no kernel launched; "
+        f"on {card}")
+    log(f"history (b) trace sweep at {AGG_AIRCRAFT} aircraft (with --device-arena): the full "
+        f"sweep {m['traces']:.1f} ms for {m['files']} aircraft ({2 * m['files']} files), host "
+        f"only {host['ms']['traces']:.1f} ms; budgeted (0.05 s per tick): "
+        f"{statistics.median(per_tick):.0f} aircraft written per tick (min {min(per_tick)}, "
+        f"max {max(per_tick)}) over {len(per_tick)} ticks, {budget_s:.3f} s in all; host clock "
+        f"on {card}")
+    log(f"history (b) writers at {AGG_AIRCRAFT} aircraft: write_globe_bincraft {m['tiles']:.1f} "
+        f"ms ({m['n_tiles']} tiles), write_heatmap {m['heatmap']:.1f} ms, generate_prom "
+        f"{m['prom']:.2f} ms; host only {host['ms']['tiles']:.1f}, {host['ms']['heatmap']:.1f}, "
+        f"{host['ms']['prom']:.2f} ms; host clock on {card}")
+    log(f"history (b) state with traces at {AGG_AIRCRAFT} aircraft: save {m['save']:.1f} ms, "
+        f"load {m['load']:.1f} ms, {m['state_bytes']} B on disk (host only: save "
+        f"{host['ms']['save']:.1f} ms, load {host['ms']['load']:.1f} ms, "
+        f"{host['ms']['state_bytes']} B); host clock on {card}")
+    log(f"history (b) aggregator frames/s (host only, median of 3): {fps[False]:.0f} without "
+        f"--json-globe-index ({', '.join(f'{w:.3f}' for w in walls[False])} s), {fps[True]:.0f} "
+        f"with it ({', '.join(f'{w:.3f}' for w in walls[True])} s), {n_frames} frames; host "
+        f"clock on {card}")
+    tmp.cleanup()
+    return card_run["launches"]
 
 
 def main() -> None:
@@ -2026,11 +2307,14 @@ def main() -> None:
 
     # --- the aggregator on the card: device CPR, columnar drain, arena -------
     cpr_phase(card)
-    agg_phase(card)
+    agg_chunks = agg_phase(card)
 
     # --- the SDR sources and persistence on the card ----------------------------
     sdr_launches, sdr_app = sdr_phase(card)
     state_phase(card, sdr_app)
+
+    # --- history on the card: traces, tiles, heatmaps, database, Prometheus --------
+    history_launches = history_phase(card, agg_chunks)
 
     entries = [
         {
@@ -2099,10 +2383,12 @@ def main() -> None:
     ]
     for entry in entries:
         # the launches of the app phase's three counted routes, of the
-        # network phase's feeder and of the SDR phase's three routes
+        # network phase's feeder, of the SDR phase's three routes and of
+        # the history phase's --ifile App
         entry["app_launches"] = app_launches[entry["name"]]
         entry["net_launches"] = net_launches[entry["name"]]
         entry["sdr_launches"] = sdr_launches[entry["name"]]
+        entry["history_launches"] = history_launches[entry["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

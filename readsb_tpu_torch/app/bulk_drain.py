@@ -20,10 +20,11 @@ airground); sync overwrites a dict field only when the column timestamp
 is newer, so scalar-path sources (e.g. TIS-B via DF18 CF variants) are
 never clobbered by stale column state.
 
-A copy of readsb_tpu's drain.  Two parts differ: `materialize` has no
-trace branch (the port's tracker has no history traces until ROADMAP item
-8c), and `materialize_arena` reads the port's arena (int64 times, only
-the assigned slots read back) and drains its device CPR fixes each tick.
+A copy of readsb_tpu's drain.  One part differs: `materialize_arena` reads
+the port's arena (int64 times, only the assigned slots read back) and
+drains its device CPR fixes each tick.  As in readsb_tpu, history traces
+take their points in `materialize` from the columnar tracker's positions;
+`materialize_arena` adds none.
 """
 
 from __future__ import annotations
@@ -237,7 +238,7 @@ def materialize(app, now: int) -> None:
     lrid_l = col("last_rid")
 
     from ..track import globe as globe_mod
-    from ..track.tracker import bearing, greatcircle
+    from ..track.tracker import TRACK_STALE, bearing, greatcircle
 
     ag_members = {m.value: m for m in AirGround}
     for k in range(len(act)):
@@ -284,6 +285,7 @@ def materialize(app, now: int) -> None:
 
         # position chain (+ serving-layer side effects the scalar setter did)
         if pv_src_l[k] != INV and pv_ts_l[k] > a.position_valid.updated:
+            prev_seen_pos = a.seen_pos
             a.prev_lat, a.prev_lon = a.lat or 0.0, a.lon or 0.0
             a.prev_pos_time = a.seen_pos
             a.lat = lat_l[k]
@@ -313,6 +315,14 @@ def materialize(app, now: int) -> None:
                 )
                 tr.distance_max = max(tr.distance_max, dist)
                 tr.distance_min = min(tr.distance_min, dist)
+            if tr.keep_traces:
+                if a.trace is None:
+                    from ..track.traces import Trace
+
+                    a.trace = Trace()
+                stale = bool(prev_seen_pos) and a.seen_pos > prev_seen_pos + 2 * TRACK_STALE
+                a.trace.add(a, a.seen_pos, stale=stale,
+                            json_trace_interval=tr.json_trace_interval)
 
 
 _SRC_MEMBERS = {int(m): m for m in Source}

@@ -2,9 +2,7 @@
 
 Option names mirror the reference so a readsb user can switch with the
 same flags (configSetDefaults readsb.c:109-245, parse readsb.c:1440-2126).
-Every option of readsb_tpu parses here as it does there; the options whose
-layers the port does not have yet raise NotImplementedError naming their
-ROADMAP item (`refuse_deferred`), before any work starts.
+Every option of readsb_tpu parses here as it does there.
 """
 
 from __future__ import annotations
@@ -329,19 +327,8 @@ def parse_args(argv=None):
         args.dump_beast_dir = parts[0]
         if len(parts) > 1:
             args.dump_beast_interval = float(parts[1])
-    refuse_deferred(args)
     return args
 
-
-# (ROADMAP item, what it brings, options) of the layers still to port;
-# each option's default is falsy, so an option is given when its value is
-# truthy
-DEFERRED = (
-    ("8c", "the second half of persistence and history (history traces, the "
-     "globe index and history directory, heatmaps, the aircraft database, "
-     "Prometheus)",
-     ("write_prom", "json_globe_index", "heatmap", "globe_history_dir", "db_file")),
-)
 
 # connector protocols whose lanes need the per-message decoded fields
 _SCALAR_OUT = {
@@ -382,14 +369,3 @@ def bulk_drain_enabled(args) -> bool:
             return False
     return True
 
-
-def refuse_deferred(args) -> None:
-    """Raise NotImplementedError for an option whose layer the port does
-    not have yet, naming its ROADMAP item."""
-    for item, what, dests in DEFERRED:
-        for dest in dests:
-            if getattr(args, dest):
-                flag = "--" + dest.replace("_", "-")
-                raise NotImplementedError(
-                    f"{flag}: {what} is ROADMAP item {item} of the port"
-                )

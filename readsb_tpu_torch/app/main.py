@@ -22,11 +22,17 @@ on the getState / replaceState trigger files and at shutdown, and it is
 restored at startup, as readsb does (readInternalState) and readsb_tpu
 does not.  --dump-beast records network Beast input (`io/beastdump.py`).
 
+History, as readsb_tpu's: --json-globe-index (or --heatmap) keeps a trace
+per aircraft (`track/traces.py`); the periodic loop writes the trace files
+and the globe tiles (`io/history.py`), the half-hour heatmap, and the
+Prometheus file (--write-prom); the exit sweep writes every dirty trace.
+--db-file joins the aircraft database (`track/acdb.py`), reloaded every
+30 s, and --globe-history-dir with --json-globe-index logs ACAS RAs
+(`io/acas.AcasLogger`).
+
 The device is explicit.  Under READSB_TPU_PLATFORM=cpu the demodulator
 runs its plain PyTorch versions on the CPU; otherwise it runs on the card,
-and `main` refuses to start without one.  Options whose layers are not
-ported yet raise NotImplementedError at argument time
-(`config.refuse_deferred`).
+and `main` refuses to start without one.
 """
 
 from __future__ import annotations
@@ -78,6 +84,8 @@ class App:
             receiver_lat=args.lat,
             receiver_lon=args.lon,
             max_range_km=args.max_range * 1.852,
+            keep_traces=bool(args.json_globe_index or args.heatmap),
+            json_trace_interval=int(args.json_trace_interval * 1000),
         )
         self.net = NetEngine()
         self._net_queue = []
@@ -166,6 +174,17 @@ class App:
             self.beast_dump = BeastDumper(
                 args.dump_beast_dir, chunk_seconds=args.dump_beast_interval
             )
+        if args.db_file:
+            from ..track.acdb import AircraftDb
+
+            self.tracker.db = AircraftDb(args.db_file)
+            self.tracker.db_reload()
+        self.acas_log = None
+        if args.globe_history_dir and args.json_globe_index:
+            from ..io.acas import AcasLogger
+
+            # daily RA event logs (checkNewDayAcas, globe_index.c:3415)
+            self.acas_log = AcasLogger(args.globe_history_dir)
         if args.write_state and os.path.isdir(args.write_state):
             # startup restore (readInternalState, globe_index.c:3565):
             # readsb_tpu reads the directory only on replaceState
@@ -200,6 +219,15 @@ class App:
             else:
                 self.remote_modes += 1
         a = self.tracker.update(mm)
+        if self.acas_log is not None and mm.acas_ra_valid:
+            from ..io import acas as acas_io
+
+            ra = (mm.MV if mm.msgtype == 16 else
+                  mm.MB if mm.msgtype in (20, 21) else mm.ME)
+            if ra and acas_io.ra_valid(bytes(ra), mm.msgtype):
+                self.acas_log.log(
+                    mm.addr, bytes(ra), a, mm, mm.sys_timestamp_ms
+                )
         if self.args.show_raw:
             if self.args.onlyaddr:  # mode_s.c:1829: address-only display
                 print("%06x" % (mm.addr & 0xFFFFFF), flush=False)
@@ -1072,7 +1100,7 @@ class App:
         if args.tar1090_use_api:
             rj["reapi"] = True  # json_out.c:1906
         json_out.write_json_atomic(rj, os.path.join(args.write_json, "receiver.json"))
-        if args.write_receiver_id_json:
+        if args.write_receiver_id_json or args.json_globe_index:
             json_out.write_json_atomic(
                 self.tracker.receivers.receivers_json(now),
                 os.path.join(args.write_json, "receivers.json"),
@@ -1089,7 +1117,10 @@ class App:
         args = self.args
         last_json = 0.0
         last_state = time.time()
+        last_traces = 0.0
+        last_heatmap_slot = -1
         last_vrs = 0.0
+        last_db_check = time.time()
         display = None
         if args.interactive and not args.no_interactive:
             from .interactive import InteractiveDisplay
@@ -1112,6 +1143,9 @@ class App:
                 self.stats_collector.cpu["api"] += (time.perf_counter() - _api_t0) * 1e3
             if display is not None:
                 display.refresh(now)
+            if self.tracker.db is not None and time.time() - last_db_check >= 30.0:
+                last_db_check = time.time()
+                self.tracker.db_reload()
             if self.out_vrs.clients and time.time() - last_vrs >= args.net_vrs_interval:
                 last_vrs = time.time()
                 from ..io import vrs as vrs_io
@@ -1136,6 +1170,39 @@ class App:
                 last_json = time.time()
                 self.write_json_files(now)
             self.tracker.receivers.maintenance(now, interval_ms=250)
+            if args.json_globe_index and args.write_json:
+                from ..io import history as history_io
+
+                if time.time() - last_traces >= args.write_traces_every:
+                    last_traces = time.time()
+                    t0 = time.perf_counter()
+                    _, self._trace_cursor = history_io.write_traces(
+                        self.tracker, args.write_json, now,
+                        cursor=getattr(self, "_trace_cursor", 0),
+                        hist_only=args.json_trace_hist_only,
+                    )
+                    self.stats_collector.cpu["background"] += (
+                        time.perf_counter() - t0
+                    ) * 1e3
+                history_io.write_globe_bincraft(self.tracker, args.write_json, now)
+            if args.heatmap and (args.globe_history_dir or args.heatmap_dir):
+                from ..io import history as history_io
+
+                slot = now // (30 * 60 * 1000)
+                if last_heatmap_slot < 0:
+                    last_heatmap_slot = slot
+                elif slot != last_heatmap_slot:
+                    last_heatmap_slot = slot
+                    start = (slot - 1) * 30 * 60 * 1000
+                    history_io.write_heatmap(
+                        self.tracker, args.heatmap_dir or args.globe_history_dir,
+                        start, start + 30 * 60 * 1000,
+                        interval_ms=int(args.heatmap * 1000),
+                    )
+            if args.write_prom:
+                from ..io import stats as stats_io
+
+                stats_io.write_prom(self, args.write_prom, now)
             if args.write_json:
                 json_out.write_json_atomic(
                     self.stats_collector.stats_json(self, now / 1000.0),
@@ -1599,6 +1666,14 @@ class App:
             periodic.cancel()
             self.drain_net_queue()
             self._materialize(self.now_ms())
+            if self.args.json_globe_index and self.args.write_json:
+                # flush dirty traces so short runs / clean exits leave
+                # complete trace files (the reference's exit sweep)
+                from ..io import history as history_io
+
+                history_io.write_traces(self.tracker, self.args.write_json,
+                                        self.now_ms(), time_budget_s=None,
+                                        hist_only=self.args.json_trace_hist_only)
             if self.args.write_json:
                 os.makedirs(self.args.write_json, exist_ok=True)
                 doc = json_out.generate_aircraft_json(

@@ -1,14 +1,19 @@
-"""ACAS resolution advisories: validity and the JSON record.
+"""ACAS RA event logging: daily acas.csv / acas.json files.
 
-Ports the reference's RA extraction (json_out.c:175-630
-sprintACASJson, validity check comm_b.c:263-300).  RAs arrive as DF16
-MV with VDS 3,0, Comm-B BDS 3,0 (DF20/21), or ES type 28 subtype 2
-(DF17/18).  The daily acas.csv / acas.json logger (AcasLogger) writes
-under --globe-history-dir and comes with ROADMAP item 8c.
+Ports the reference's RA extraction and daily log writers
+(json_out.c:175-630 sprintACASInfoShort/sprintACASJson/logACASInfoShort,
+globe_index.c:3415 checkNewDayAcas, validity check comm_b.c:263-300).
+RAs arrive as DF16 MV with VDS 3,0, Comm-B BDS 3,0 (DF20/21), or ES
+type 28 subtype 2 (DF17/18); deduplication keeps one line per distinct
+(addr, 7 bytes) within 300 ms (5 s once Clear-of-Conflict).
+
+A copy of readsb_tpu's `io/acas.py`.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 
 
@@ -104,6 +109,7 @@ def advisory_text(bytes7: bytes) -> str:
 
 _RACS_LONG = ["Do not pass below", "Do not pass above",
               "Do not turn left", "Do not turn right"]
+_RACS_SHORT = ["not below", "not above", "not left ", "not right"]
 
 
 def json_record(addr: int, bytes7: bytes, a, mm, now_ms: int) -> dict:
@@ -136,3 +142,84 @@ def json_record(addr: int, bytes7: bytes, a, mm, now_ms: int) -> dict:
         if a.baro_alt is not None:
             rec["alt_baro"] = a.baro_alt
     return rec
+
+
+def csv_line(addr: int, bytes7: bytes, a, mm, now_ms: int) -> str:
+    """sprintACASInfoShort (json_out.c:443-540) comma format."""
+    t = time.gmtime(now_ms // 1000)
+    p = time.strftime("%F", t) + ","
+    p += time.strftime("%T", t) + ".%d, " % ((now_ms % 1000) // 100)
+    p += "%06x,DF:," % (addr & 0xFFFFFF)
+    p += "%2u" % mm.msgtype if mm is not None else "  "
+    p += ",bytes:," + bytes7.hex().upper() + ","
+    if a is not None and a.seen_pos:
+        p += "%11.6f,%11.6f," % (a.lat, a.lon)
+    else:
+        p += "           ,           ,"
+    if a is not None and a.baro_alt is not None:
+        p += "%5d,ft," % a.baro_alt
+    else:
+        p += "     ,ft,"
+    rate = None
+    if a is not None:
+        rate = a.geom_rate if a.geom_rate is not None else a.baro_rate
+    p += ("%5d" % rate if rate is not None else "     ") + ",fpm,"
+    p += "ARA:," + "".join(str(_bit(bytes7, i)) for i in range(9, 16))
+    p += ",RAT:,%u" % _bit(bytes7, 27)
+    p += ",MTE:,%u" % _bit(bytes7, 28)
+    p += ",RAC:," + "".join(str(_bit(bytes7, i)) for i in range(23, 27))
+    p += ", "
+    if _bits(bytes7, 23, 26):
+        p += "".join(_RACS_SHORT[i - 23] for i in range(23, 27) if _bit(bytes7, i))
+    else:
+        p += advisory_text(bytes7)
+    return p
+
+
+class AcasLogger:
+    """Day-rolled acas.csv / acas.json writers with the reference's
+    dedup ring (logACASInfoShort, json_out.c:193-245)."""
+
+    def __init__(self, history_dir: str):
+        self.history_dir = history_dir
+        self._day = None
+        self._csv = None
+        self._json = None
+        self._dedup: list[tuple[int, bytes, int]] = []  # (addr, bytes, ts)
+        self.events = 0
+
+    def _roll(self, now_ms: int) -> None:
+        day = time.strftime("%Y-%m-%d", time.gmtime(now_ms // 1000))
+        if day == self._day:
+            return
+        self._day = day
+        for f in (self._csv, self._json):
+            if f:
+                f.close()
+        d = os.path.join(self.history_dir, day, "acas")
+        os.makedirs(d, exist_ok=True)
+        self._csv = open(os.path.join(d, "acas.csv"), "a")
+        self._json = open(os.path.join(d, "acas.json"), "a")
+
+    def log(self, addr: int, bytes7: bytes, a, mm, now_ms: int) -> bool:
+        rat = _bit(bytes7, 27)
+        ival = 5000 if rat else 300
+        self._dedup = [
+            (ad, by, ts) for ad, by, ts in self._dedup if now_ms - ts < 5000
+        ]
+        for ad, by, ts in self._dedup:
+            if ad == addr and by == bytes7 and now_ms - ts < ival:
+                return False
+        self._dedup.append((addr, bytes7, now_ms))
+        self._roll(now_ms)
+        self._csv.write(csv_line(addr, bytes7, a, mm, now_ms) + "\n")
+        self._csv.flush()
+        self._json.write(json.dumps(json_record(addr, bytes7, a, mm, now_ms)) + "\n")
+        self._json.flush()
+        self.events += 1
+        return True
+
+    def close(self) -> None:
+        for f in (self._csv, self._json):
+            if f:
+                f.close()

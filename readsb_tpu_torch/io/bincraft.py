@@ -5,18 +5,23 @@ aircraft.c:174-326), consumed by tar1090's JS as Int32Array — the layout
 must stay byte-identical.  Written as aircraft.binCraft.zst and per-tile
 globe_NNNN.binCraft.zst snapshots.
 
-A copy of readsb_tpu's encoder for the API's binCraft answers.  It leaves
-out write_bincraft_zst, the compressed snapshot file: ROADMAP item 8c.
+A copy of readsb_tpu's `io/bincraft.py`.  `write_bincraft_zst` compresses
+with the port's zstd codec (`io/zstd.py`) in place of the `zstandard`
+package, and writes zlib to a `.zlib` file where that codec does not
+load, as readsb_tpu does without `zstandard`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import struct
+import zlib
 from typing import Optional
 
 from ..decode.fields import AirGround, SilType
 from ..track.tracker import TRACK_EXPIRE, Aircraft, Tracker
+from . import zstd
 
 RECORD_BYTES = 112
 
@@ -169,3 +174,16 @@ def generate_bincraft(tracker: Tracker, now: int, *, elem_size: int = RECORD_BYT
         assert len(rec) == RECORD_BYTES, len(rec)
         parts.append(rec)
     return b"".join(parts)
+
+
+def write_bincraft_zst(tracker: Tracker, path: str, now: int) -> None:
+    data = generate_bincraft(tracker, now)
+    if zstd.available():
+        comp = zstd.compress(data, 3)
+    else:
+        comp = zlib.compress(data, 6)
+        path = path.replace(".zst", ".zlib")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(comp)
+    os.rename(tmp, path)

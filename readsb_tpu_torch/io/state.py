@@ -2,19 +2,19 @@
 
 A copy of readsb_tpu's `io/state.py`, with readsb_tpu's names and file
 formats: `save_blob`, `save_state` and `load_state`, which reads the v1
-gzip'd JSON blobs and the v2 zstd pickles and writes v2.  Two things
-differ:
+gzip'd JSON blobs and the v2 zstd pickles and writes v2, history traces
+included.  Two things differ:
 
 - zstd is the port's own codec (`io/zstd.py`, libzstd through ctypes) in
   place of the `zstandard` package;
 - readsb_tpu's v2 blobs pickle its own classes (`Aircraft`'s `Validity`
-  and `CprPair`, the enums of `decode.fields`).  `load_state` maps those
-  class paths to the port's modules, so a state directory that
-  readsb_tpu wrote loads without importing it; the port's
-  `pos_reliable_valid` is absent there and materializes as a fresh
-  `Validity` (`Aircraft.__getattr__`).  History traces are the second
-  half of ROADMAP item 8c: a blob that carries one raises
-  NotImplementedError naming it.
+  and `CprPair`, the enums of `decode.fields`, a trace's `Trace` and
+  `State`).  `load_state` maps those class paths to the port's modules, so
+  a state directory that readsb_tpu wrote loads without importing it; the
+  port's `pos_reliable_valid` is absent there and materializes as a fresh
+  `Validity` (`Aircraft.__getattr__`).  A restored trace's chunks still
+  pickle readsb_tpu's `State`: `track/traces.load_chunk` maps it when
+  they are read.
 
 The reference writes 256 round-robin zstd "blobs" of raw aircraft structs
 (globe_index.c:2656-3081, readsb.c:2545-2568).  Here the store is a
@@ -30,6 +30,7 @@ import io
 import json
 import os
 import pickle
+from typing import Optional
 
 from ..decode.fields import AddrType, AirGround, HeadingType, Source
 from ..track.tracker import Aircraft, CprPair, Tracker, Validity
@@ -38,19 +39,78 @@ from . import zstd
 STATE_BLOBS = 64
 STATE_MAGIC = "readsb-tpu-state-v1"
 
-TRACES_DEFERRED = "history traces in state blobs are ROADMAP item 8c of the port"
+
+def _validity_to_list(v: Validity) -> list:
+    return [v.updated, int(v.source), int(v.last_source)]
 
 
 def _validity_from_list(x: list) -> Validity:
     return Validity(updated=x[0], source=Source(x[1]), last_source=Source(x[2]))
 
 
-_SKIP = {"signal_ring", "trace"}  # a v1 blob keeps a trace apart, as "__trace"
+_SKIP = {"signal_ring", "trace"}  # trace serialized separately (see below)
+
+
+def _trace_to_dict(tr) -> Optional[dict]:
+    """Persist a Trace incl. compressed chunks (globe_index.c:2656-2938
+    keeps trace chunks in the state blobs; restart must not lose them)."""
+    import base64
+
+    if tr is None or (not tr.points and not tr.chunks):
+        return None
+    return {
+        "points": [dataclasses.asdict(s) for s in tr.points],
+        "chunks": [base64.b64encode(c).decode() for c in tr.chunks],
+        "chunk_meta": [list(m) for m in tr.chunk_meta],
+        "len_total": tr.len_total,
+        "next_marker": tr.next_marker,
+    }
+
+
+def _trace_from_dict(d: Optional[dict]):
+    import base64
+
+    from ..track.traces import State, Trace
+
+    if not d:
+        return None
+    tr = Trace()
+    tr.points = [State(**p) for p in d["points"]]
+    tr.chunks = [base64.b64decode(c) for c in d["chunks"]]
+    tr.chunk_meta = [tuple(m) for m in d["chunk_meta"]]
+    tr.len_total = d["len_total"]
+    tr.next_marker = d.get("next_marker", 0)
+    return tr
+
+
+def _aircraft_to_dict(a: Aircraft) -> dict:
+    """A v1 record: readsb_tpu writes these, and its own and the port's
+    load_state read them."""
+    out = {}
+    tr = _trace_to_dict(getattr(a, "trace", None))
+    if tr is not None:
+        out["__trace"] = tr
+    for f in dataclasses.fields(a):
+        val = getattr(a, f.name)
+        if f.name in _SKIP:
+            continue
+        if isinstance(val, Validity):
+            out[f.name] = _validity_to_list(val)
+        elif isinstance(val, CprPair):
+            out[f.name] = [
+                val.lat, val.lon, int(val.type), _validity_to_list(val.valid),
+                val.nic, val.rc,
+            ]
+        elif isinstance(val, (Source, AddrType, AirGround, HeadingType)):
+            out[f.name] = int(val)
+        elif isinstance(val, bytes):
+            out[f.name] = {"__hex": val.hex()}
+        else:
+            out[f.name] = val
+    return out
 
 
 def _aircraft_from_dict(d: dict) -> Aircraft:
-    if d.get("__trace"):
-        raise NotImplementedError(TRACES_DEFERRED)
     a = Aircraft(addr=d["addr"])
     for f in dataclasses.fields(Aircraft):
         if f.name not in d or f.name in _SKIP:
@@ -77,6 +137,9 @@ def _aircraft_from_dict(d: dict) -> Aircraft:
             setattr(a, f.name, bytes.fromhex(val["__hex"]))
         else:
             setattr(a, f.name, val)
+    tr = _trace_from_dict(d.get("__trace"))
+    if tr is not None:
+        a.trace = tr
     return a
 
 
@@ -141,8 +204,8 @@ def _unpack_aircraft(d: dict) -> Aircraft:
 _RECORD_MODULES = {
     "readsb_tpu.track.tracker": "readsb_tpu_torch.track.tracker",
     "readsb_tpu.decode.fields": "readsb_tpu_torch.decode.fields",
+    "readsb_tpu.track.traces": "readsb_tpu_torch.track.traces",
 }
-_TRACE_MODULES = ("readsb_tpu.track.traces", "readsb_tpu_torch.track.traces")
 
 
 class _Unpickler(pickle.Unpickler):
@@ -150,8 +213,6 @@ class _Unpickler(pickle.Unpickler):
     classes resolve to the port's copies, never to readsb_tpu itself."""
 
     def find_class(self, module: str, name: str):
-        if module in _TRACE_MODULES:
-            raise NotImplementedError(TRACES_DEFERRED)
         module = _RECORD_MODULES.get(module, module)
         if module.split(".")[0] == "readsb_tpu":
             raise pickle.UnpicklingError(f"{module}.{name} is no state record class")

@@ -1,16 +1,22 @@
-"""Stats outputs: stats.json and the collect() counter snapshot.
+"""Stats / metrics outputs: stats.json, status.prom, Prometheus file.
 
-Mirrors the reference's windowed stats.json contract (README-json.md:263+):
-"latest", "last1min", "last5min", "last15min", "total" blocks built from
-a ring of 1-minute periods (statsUpdate, stats.c:470 — the reference's
-90x10s ring collapsed to the per-minute roll its JSON surface actually
-exposes).  The Prometheus file (--write-prom) reads the history and Beast
-layers and comes with ROADMAP item 8c.
+Mirrors the reference's metric surface (stats.c:656-907, readsb_* names)
+for drop-in Prometheus scraping, including the windowed stats.json
+contract (README-json.md:263+): "latest", "last1min", "last5min",
+"last15min", "total" blocks built from a ring of 1-minute periods
+(statsUpdate, stats.c:470 — the reference's 90x10s ring collapsed to the
+per-minute roll its JSON surface actually exposes).
+
+A copy of readsb_tpu's `io/stats.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import tempfile
+import time
 
 
 # cumulative sources sampled by the collector: (field, getter)
@@ -328,3 +334,235 @@ def collect(app, now_ms: int) -> dict:
             }
         )
     return d
+
+
+def generate_stats_json(app, now_ms: int) -> dict:
+    return collect(app, now_ms)
+
+
+def generate_prom(app, now_ms: int) -> str:
+    """Full Prometheus surface mirroring generatePromFile (stats.c:733-907).
+
+    Metric family names and conditional sections (ping histogram, SDR
+    block, globe trace-memory gauges, per-connector labels) match the
+    reference one for one; tests/test_prom.py diffs the emitted names
+    against the reference source.  HELP/TYPE comment lines are added
+    (the reference emits none; Prometheus ignores unknown families).
+    Counters the framework does not maintain yet are emitted as zero
+    gauges and noted inline.
+    """
+    from ..decode.fields import AddrType
+    from .json_out import ADDRTYPE_STRINGS
+
+    t = app.tracker
+    sc = app.stats_collector
+    L = []
+
+    def m(name, value, help_=None, typ="counter"):
+        if help_:
+            L.append(f"# HELP {name} {help_}")
+            L.append(f"# TYPE {name} {typ}")
+        if isinstance(value, float):
+            L.append(f"{name} {value:.1f}")
+        else:
+            L.append(f"{name} {int(value)}")
+
+    # --- aircraft census (statsCountAircraft) -------------------------------
+    now = now_ms
+    acs = [a for a in t.aircraft.values() if now < a.seen + 5 * 60000]
+    vc = [0, 0, 0]
+    emergency = with_pos = with_flight = 0
+    rssis = []
+    type_counts: dict[int, int] = {}
+    for a in acs:
+        if 0 <= a.adsb_version <= 2:
+            vc[a.adsb_version] += 1
+        if a.emergency:
+            emergency += 1
+        if a.seen_pos:
+            with_pos += 1
+        if a.callsign:
+            with_flight += 1
+        r = a.rssi()
+        if r > -50:
+            rssis.append(r)
+        k = int(a.addrtype)
+        type_counts[k] = type_counts.get(k, 0) + 1
+    rssis.sort()
+
+    def q(f):
+        return rssis[min(len(rssis) - 1, int(f * len(rssis)))] if rssis else -50.0
+
+    m("readsb_aircraft_adsb_version_zero", vc[0], "aircraft by ADS-B version", "gauge")
+    m("readsb_aircraft_adsb_version_one", vc[1])
+    m("readsb_aircraft_adsb_version_two", vc[2])
+    m("readsb_aircraft_emergency", emergency, "aircraft squawking emergency", "gauge")
+    m("readsb_aircraft_rssi_average", sum(rssis) / len(rssis) if rssis else -50.0,
+      "fleet RSSI distribution (dBFS)", "gauge")
+    m("readsb_aircraft_rssi_min", rssis[0] if rssis else -50.0)
+    m("readsb_aircraft_rssi_quart1", q(0.25))
+    m("readsb_aircraft_rssi_median", q(0.5))
+    m("readsb_aircraft_rssi_quart3", q(0.75))
+    m("readsb_aircraft_rssi_max", rssis[-1] if rssis else -50.0)
+    m("readsb_aircraft_total", len(acs), "tracked aircraft", "gauge")
+    m("readsb_aircraft_with_flight_number", with_flight)
+    m("readsb_aircraft_without_flight_number", len(acs) - with_flight)
+    m("readsb_aircraft_with_position", with_pos)
+    m("readsb_aircraft_without_position", len(acs) - with_pos)
+    for at in AddrType:
+        m(f"readsb_aircraft_{ADDRTYPE_STRINGS.get(at, 'unknown')}",
+          type_counts.get(int(at), 0))
+
+    # --- CPR counters -------------------------------------------------------
+    m("readsb_cpr_airborne", t.cpr_airborne, "CPR decode outcomes")
+    m("readsb_cpr_surface", t.cpr_surface)
+    m("readsb_cpr_global_ok", t.cpr_global_ok)
+    m("readsb_cpr_global_bad", t.cpr_global_bad)
+    m("readsb_cpr_global_bad_range", t.cpr_global_range_checks)
+    m("readsb_cpr_global_bad_speed", t.cpr_global_speed_checks)
+    m("readsb_cpr_global_skipped", t.cpr_global_skipped)
+    m("readsb_cpr_local_ok", t.cpr_local_ok)
+    m("readsb_cpr_local_aircraft_relative", t.cpr_local_aircraft_relative)
+    m("readsb_cpr_local_receiver_relative", t.cpr_local_receiver_relative)
+    m("readsb_cpr_local_bad_range", t.cpr_local_range_checks)
+    m("readsb_cpr_local_bad_speed", t.cpr_local_speed_checks)
+    m("readsb_cpr_local_skipped", t.cpr_local_skipped)
+    m("readsb_cpr_filtered", t.cpr_filtered)
+
+    # --- per-stage CPU (ms, CPU_MILLIS block) -------------------------------
+    cpu = sc.cpu
+    m("readsb_cpu_background", cpu.get("background", 0.0),
+      "per-stage CPU milliseconds")
+    m("readsb_cpu_demod", cpu.get("demod", 0.0))
+    m("readsb_cpu_reader", cpu.get("reader", 0.0))
+    m("readsb_cpu_aircraft_json", cpu.get("aircraft_json", 0.0))
+    m("readsb_cpu_globe_json", cpu.get("globe_json", 0.0))
+    m("readsb_cpu_binCraft", cpu.get("bin", 0.0))
+    m("readsb_cpu_heatmap_and_state", cpu.get("heatmap_and_state", 0.0))
+    m("readsb_cpu_remove_stale", cpu.get("remove_stale", 0.0))
+    m("readsb_cpu_trace_json", cpu.get("trace_json", 0.0))
+    m("readsb_cpu_api_update", cpu.get("api", 0.0))
+    m("readsb_cpu_api_workers", cpu.get("api_workers", 0.0))
+
+    api = getattr(app, "api_server", None)
+    m("readsb_api_request_count", api.request_count if api else 0,
+      "queries served by /re-api")
+    from .history import TRACE_WRITES
+
+    m("readsb_tracewrites_recent", TRACE_WRITES["recent"], "trace writer activity")
+    m("readsb_tracewrites_full", TRACE_WRITES["full"])
+    m("readsb_tracewrites_perm", TRACE_WRITES["perm"])
+    m("readsb_tracewrites_cycle_duration", TRACE_WRITES["cycle_ms"])
+
+    m("readsb_distance_max", t.distance_max, "receiver range envelope (m)", "gauge")
+    m("readsb_distance_min", t.distance_min if t.distance_min < 1e42 else 0.0)
+
+    # --- message counters ---------------------------------------------------
+    dem = app._demod.stats if app._demod is not None else None
+    d_pre = dem.preambles if dem else 0
+    d_bad = dem.rejected_bad if dem else 0
+    d_unk = dem.rejected_unknown_icao if dem else 0
+    d_acc = list(dem.accepted) + [0, 0] if dem else [0, 0]
+    r_bad = getattr(app, "remote_bad", 0)
+    sbs_ok = getattr(app, "sbs_valid", 0)
+    sbs_bad = getattr(app, "sbs_invalid", 0)
+    m("readsb_messages_valid", app.messages, "accepted messages")
+    m("readsb_messages_invalid", sbs_bad + r_bad + d_bad + d_unk)
+    m("readsb_messages_modes_valid", d_acc[0] + getattr(app, "remote_modes", 0))
+    m("readsb_messages_modes_valid_fixed_bit", d_acc[1])
+    m("readsb_messages_modes_invalid_bad", r_bad + d_bad)
+    m("readsb_messages_modes_invalid_unknown_icao", d_unk)
+    m("readsb_messages_modes_rejected_delayed", 0)  # delayed-ts rejection n/a
+    m("readsb_messages_basestation_valid", sbs_ok)
+    m("readsb_messages_basestation_invalid", sbs_bad)
+    m("readsb_messages_modeac_valid",
+      getattr(app, "remote_modeac", 0)
+      + getattr(app._demod, "stats_modeac", 0))
+
+    from . import beast as beast_io
+
+    m("readsb_network_bytes_in", app.net.bytes_in, "wire traffic")
+    m("readsb_network_bytes_out", app.net.bytes_out)
+    m("readsb_network_malformed_beast_bytes", beast_io.MALFORMED_BYTES[0])
+
+    if getattr(app.args, "ping", False) or any(sc.remote_ping_rtt):
+        bucketmax, bucketsize = 0.0, sc.PING_BUCKETBASE
+        for i in range(sc.PING_BUCKETS):
+            bucketmax += bucketsize
+            bucketmax = round(bucketmax / 10) * 10
+            bucketsize *= sc.PING_BUCKETMULT
+            L.append(
+                f"readsb_network_packets_rtt_{int(bucketmax)} {sc.remote_ping_rtt[i]}"
+            )
+
+    m("readsb_tracks_all", t.tracks_all, "distinct aircraft tracks created")
+    m("readsb_tracks_single_message", t.tracks_single_message)
+
+    m("readsb_position_count_total", t.pos_all, "accepted positions")
+    m("readsb_position_count_duplicate", t.pos_duplicate)
+    m("readsb_position_count_garbage", t.pos_garbage)
+    for at in AddrType:
+        m(f"readsb_position_count_{ADDRTYPE_STRINGS.get(at, 'unknown')}",
+          t.pos_by_type.get(int(at), 0))
+
+    for con in app.net.connectors:
+        up = 0
+        if getattr(con, "connected", False):
+            up = int((time.time() - getattr(con, "last_connect", time.time())))
+        L.append(
+            f'readsb_net_connector_status{{host="{con.host}",port="{con.port}"}} {up}'
+        )
+
+    if app._demod is not None or getattr(app.args, "device_type", None):
+        gain = getattr(app.args, "gain", None)
+        m("readsb_sdr_gain", float(gain) if gain is not None else 999.9,
+          "tuner gain (dB)", "gauge")
+        sig_sum, sig_n, peak, strong = sc._sig
+        import math as _math
+
+        m("readsb_signal_avg",
+          10 * _math.log10(sig_sum / sig_n) if sig_sum > 0 and sig_n > 0 else -50.0,
+          "signal power (dBFS)", "gauge")
+        noise = getattr(app, "_noise_db", None)
+        m("readsb_signal_noise", noise if noise is not None else -50.0)
+        m("readsb_signal_peak", 10 * _math.log10(peak) if peak > 0 else -50.0)
+        m("readsb_signal_strong", strong)
+        m("readsb_demod_samples_processed",
+          app._demod.scan_global if app._demod is not None else 0)
+        m("readsb_demod_samples_dropped",
+          sc.samples_dropped_buffers)
+        m("readsb_demod_samples_lost", 0)
+        m("readsb_demod_estimated_ppm", getattr(app, "estimated_ppm", 0.0))
+        m("readsb_demod_preambles", d_pre)
+
+    if getattr(app.args, "json_globe_index", False):
+        cur = chunk = 0
+        for a in t.aircraft.values():
+            if a.trace is not None:
+                cur += len(a.trace.points) * 24
+                chunk += sum(len(ch) for ch in a.trace.chunks)
+        from ..track.traces import render_cache_memory
+
+        m("readsb_trace_current_memory", cur, "trace memory (bytes)", "gauge")
+        m("readsb_trace_chunk_memory", chunk)
+        m("readsb_trace_cache_memory", render_cache_memory())
+
+    m("readsb_uptime", int((time.time() - app.start_time) * 1000),
+      "process uptime (ms)", "gauge")
+    return "\n".join(L) + "\n"
+
+
+def write_prom(app, path: str, now_ms: int) -> None:
+    d = os.path.dirname(path) or "."
+    fd, tmp = tempfile.mkstemp(dir=d)
+    with os.fdopen(fd, "w") as f:
+        f.write(generate_prom(app, now_ms))
+    os.rename(tmp, path)
+
+
+def write_stats_json(app, path: str, now_ms: int) -> None:
+    d = os.path.dirname(path) or "."
+    fd, tmp = tempfile.mkstemp(dir=d)
+    with os.fdopen(fd, "w") as f:
+        json.dump(generate_stats_json(app, now_ms), f)
+    os.rename(tmp, path)

@@ -5,6 +5,8 @@ tar1090 web app's globe_NNNN tile fetches resolve identically:
 - 66 special tiles (index 0..65) covering oceans/low-density areas
 - everything else falls into the 3-degree grid, index =
   (lat+90)/3 * 121 + (lon+180)/3 + 1000
+
+A copy of readsb_tpu's `track/globe.py`.
 """
 
 from __future__ import annotations
@@ -124,3 +126,21 @@ def globe_index_np(lat: np.ndarray, lon: np.ndarray) -> np.ndarray:
     any_hit = hit.any(axis=1)
     regular = ((glat + 90) // grid) * GLOBE_LAT_MULT + (glon + 180) // grid + GLOBE_MIN_INDEX
     return np.where(any_hit, first, np.minimum(regular, GLOBE_MAX_INDEX)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def globe_indexes() -> tuple[int, ...]:
+    """All valid tile indexes (special + non-shadowed grid tiles),
+    mirrors init_globe_index's json_globe_indexes list."""
+    out = list(range(len(SPECIAL_TILES)))
+    grid = GLOBE_INDEX_GRID
+    for idx in range(GLOBE_MIN_INDEX, GLOBE_MAX_INDEX + 1):
+        i = (idx - GLOBE_MIN_INDEX) // GLOBE_LAT_MULT
+        j = (idx - GLOBE_MIN_INDEX) % GLOBE_LAT_MULT
+        lat = i * grid - 90
+        lon = j * grid - 180
+        if lat > 90 or lon > 180:
+            continue
+        if globe_index(lat + 0.1, lon + 0.1) == idx:
+            out.append(idx)
+    return tuple(out)

@@ -23,12 +23,12 @@ updates follow the reference's acceptance rules:
   track.c:2948; the reference keeps them longer for globe history — that
   retention lives in the trace/history layer here)
 
-A copy of readsb_tpu's dict tracker, kept bit-equal to it, without its
-history traces (keep_traces, json_trace_interval): those come with ROADMAP
-item 8c and the device arena with item 10.  One fault of readsb_tpu is not
-copied: when the altitude score is exhausted, the altitude stays valid
-only if the *reliable* position came from JAERO (pos_reliable_valid, as
-readsb gates it, track.c:1798-1800), not the latest position.
+A copy of readsb_tpu's dict tracker, kept bit-equal to it, history traces
+(keep_traces, json_trace_interval; `track/traces.py`) included; the
+device arena is `track/arena.py`.  One fault of readsb_tpu is not copied:
+when the altitude score is exhausted, the altitude stays valid only if the
+*reliable* position came from JAERO (pos_reliable_valid, as readsb gates
+it, track.c:1798-1800), not the latest position.
 """
 
 from __future__ import annotations
@@ -353,7 +353,7 @@ class Aircraft:
     modec_hit: bool = False
 
     # history
-    trace: Optional[object] = None  # history trace (ROADMAP item 8c)
+    trace: Optional[object] = None  # track.traces.Trace when keep_traces
     receiver_id: int = 0  # feeder of the last accepted position (lastPosReceiverId)
     globe_index: int = -1  # current 3-degree globe tile
 
@@ -396,7 +396,11 @@ class Tracker:
         receiver_lat: Optional[float] = None,
         receiver_lon: Optional[float] = None,
         max_range_km: float = 450 * 1.852,  # 450 nmi (readsb.c:149)
+        keep_traces: bool = False,
+        json_trace_interval: int = 30 * SECONDS,
     ):
+        self.keep_traces = keep_traces
+        self.json_trace_interval = json_trace_interval
         self.reduce_interval_ms = 125  # --net-beast-reduce-interval
         # beast_reduce output shaping knobs (readsb.c:137-138,1741-1751)
         self.reduce_filter_dist_m = -1.0  # --net-beast-reduce-filter-dist
@@ -1345,6 +1349,7 @@ class Tracker:
         self.pos_all += 1
         k = int(mm.addrtype)
         self.pos_by_type[k] = self.pos_by_type.get(k, 0) + 1
+        prev_seen_pos = a.seen_pos
         a.prev_lat, a.prev_lon, a.prev_pos_time = a.lat or 0.0, a.lon or 0.0, a.seen_pos
         a.lat = lat
         a.lon = lon
@@ -1397,10 +1402,18 @@ class Tracker:
             self.distance_max = max(self.distance_max, dist)
             self.distance_min = min(self.distance_min, dist)
 
-        # globe tile (traceAdd, globe_index.c:2286)
+        # globe tile + history trace (traceAdd, globe_index.c:2286)
         from . import globe as globe_mod
 
         a.globe_index = globe_mod.globe_index(lat, lon)
+        if self.keep_traces:
+            if a.trace is None:
+                from .traces import Trace
+
+                a.trace = Trace()
+            stale = bool(prev_seen_pos) and now > prev_seen_pos + 2 * TRACK_STALE
+            a.trace.add(a, now, stale=stale,
+                        json_trace_interval=self.json_trace_interval)
 
     # ------------------------------------------------------------------
 

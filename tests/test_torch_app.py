@@ -91,9 +91,8 @@ def _results(app, jo, so):
         "receiver.json": jo.generate_receiver_json(1000, app.args.lat, app.args.lon),
         "receivers.json": t.receivers.receivers_json(now),
         "outline.json": t.outline.outline_json(),
-        "counters": {k: v for k, v in vars(t).items()  # readsb_tpu's trace setting aside
-                     if isinstance(v, (int, float)) and not isinstance(v, bool)
-                     and k != "json_trace_interval"},
+        "counters": {k: v for k, v in vars(t).items()
+                     if isinstance(v, (int, float)) and not isinstance(v, bool)},
         "aircraft": aircraft_state(t.aircraft.values()),
         "modeac": [x.tolist() for x in (t.modeac_count, t.modeac_lastcount, t.modeac_match,
                                         t.modeac_age)],

@@ -6,10 +6,9 @@ READSB_TPU_PLATFORM=cpu the command line replays the same IQ file with
 the same options, writes aircraft.json, receiver.json and stats.json and
 exits 0, and its aircraft.json equals the in-process run's apart from
 `now`.  Without that variable and without a card it exits non-zero and
-writes nothing.  Each option whose layer is not ported raises
-NotImplementedError naming its ROADMAP item, before any work starts; the
-network options, --net-bulk-drain and --device-arena parse as
-readsb_tpu's do.
+writes nothing.  Every option of the layers once deferred (the network
+options, --net-bulk-drain, --device-arena, every --device-type, and the
+persistence and history options of item 8c) parses as readsb_tpu's does.
 No test here runs readsb_tpu's demodulator.
 """
 
@@ -143,28 +142,30 @@ DEFERRED = [
      ("rtlsdr", "soapy", "modesbeast", "gnshulc", "hackrf", "bladerf", "ubladerf", "plutosdr")]
 
 
-# the options of item 8c's first half (state and the Beast dump), ported
-PORTED_8C = ("--write-state", "--dump-beast")
+# the history options of item 8c's second half: the App takes them at
+# construction without writing anything
+HISTORY_8C = ("--write-prom", "--json-globe-index", "--heatmap", "--globe-history-dir",
+              "--db-file")
 
 
 @pytest.mark.parametrize("extra,item", DEFERRED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_deferred_options_raise_naming_their_item(extra, item, capture, monkeypatch):
-    """An option of a layer still to port (the second half of item 8c)
-    raises naming its item.  The options of the ported items parse as
-    readsb_tpu's do: those of item 8b beside --net, on whichever drain
-    readsb_tpu's rule picks (the columnar one is item 8d), --net-bulk-drain
-    (8d), --device-arena (10), every --device-type (8e) and the options of
-    8c's first half, --write-state and --dump-beast."""
+    """No option raises any more: every item once deferred is ported, and
+    each of its options parses as readsb_tpu's does: those of item 8b
+    beside --net, on whichever drain readsb_tpu's rule picks (the columnar
+    one is item 8d), --net-bulk-drain (8d), --device-arena (10), every
+    --device-type (8e) and the options of 8c, persistence and history,
+    whose App the port builds."""
     monkeypatch.setenv("READSB_TPU_PLATFORM", "cpu")
     argv = ["--device-type", "ifile", "--ifile", capture, *extra]
-    if item in ("8d", "10", "8e") or extra[0] in PORTED_8C:
+    if item != "8b":
         args = main.parse_args(argv)
         assert vars(args) == vars(jax_parse_args(argv))
         assert args.device_type == (extra[1] if item == "8e" else "ifile")
-        return
-    if item != "8b":
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
-            main.main(argv)
+        if extra[0] in HISTORY_8C:
+            app = main.App(args)
+            assert app.tracker.keep_traces == bool(args.json_globe_index or args.heatmap)
+            assert (app.tracker.db is not None) == (extra[0] == "--db-file")
         return
     for net in (["--net"], ["--net", "--no-net-bulk-drain"]):
         args = main.parse_args(argv + net)

@@ -627,3 +627,135 @@ def test_state_saved_on_the_card_loads_into_a_fresh_card_app(dev, tmp_path, monk
     assert fresh.device.type == "cuda"
     assert (sorted(repr(a) for a in fresh.tracker.aircraft.values())
             == sorted(repr(a) for a in app.tracker.aircraft.values()))
+
+
+# --- history ------------------------------------------------------------------------
+
+
+def _history_files(root) -> dict:
+    """{relative path: content} under root, trace files and heatmaps
+    gunzipped and globe tiles zstd-decompressed (their bytes need not be
+    equal: gzip stamps the time); state blobs are left out."""
+    import gzip
+    import os
+
+    from readsb_tpu_torch.io import zstd
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            rel = os.path.relpath(p, root)
+            if rel.startswith("state"):
+                continue
+            data = open(p, "rb").read()
+            if data[:2] == b"\x1f\x8b":
+                data = gzip.decompress(data)
+            elif data[:4] == b"\x28\xb5\x2f\xfd":
+                data = zstd.decompress(data)
+            out[rel] = data
+    return out
+
+
+def _history_outputs(app, root) -> dict:
+    """The exit sweep's trace files, the globe tiles, the half hour's
+    heatmap and the reloaded state of `app`, at its clock."""
+    import os
+
+    from readsb_tpu_torch.io import history, state
+    from readsb_tpu_torch.track import tracker
+
+    now = app.now_ms()
+    os.makedirs(os.path.join(root, "json"))
+    history.write_traces(app.tracker, os.path.join(root, "json"), now, time_budget_s=None)
+    history.write_globe_bincraft(app.tracker, os.path.join(root, "json"), now)
+    start = now // 1_800_000 * 1_800_000
+    history.write_heatmap(app.tracker, os.path.join(root, "hist"), start, start + 1_800_000,
+                          interval_ms=1000)
+    state.save_state(app.tracker, os.path.join(root, "state"), now)
+    back = tracker.Tracker()
+    n = state.load_state(back, os.path.join(root, "state"))
+    full = {a.addr: [vars(s) for s in a.trace.full()] for a in back.aircraft.values()
+            if a.trace is not None}
+    return {"files": _history_files(root), "state": (n, full)}
+
+
+def test_history_of_the_sdr_app_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch):
+    """The uc8 SDR route with --json-globe-index, --heatmap and --db-file on
+    the card and on the CPU: traces, trace files, tiles, heatmap, state."""
+    import gzip
+
+    from readsb_tpu_torch.io import json_out
+
+    db = str(tmp_path / "aircraft.csv.gz")
+    with gzip.open(db, "wt") as f:
+        for k in range(8):
+            f.write(f"{0x400000 + 0x101 * (k + 1):06X};HB-{k:03d};A320;1;;;\n")
+    extra = ("--json-globe-index", "--json-trace-interval", "1", "--heatmap", "1", "--db-file", db)
+    data = _sdr_bytes("uc8")
+    outs = []
+    for device in ("cuda", "cpu"):
+        app, frames = _sdr_app(device, SDR_ROUTES["uc8"][0], data, "uc8", monkeypatch, extra)
+        assert app.tracker.keep_traces and len(frames) > 50
+        now = app.now_ms()
+        outs.append((json_out.generate_aircraft_json(app.tracker, now, app.messages),
+                     _history_outputs(app, str(tmp_path / device))))
+    assert outs[0] == outs[1]
+    doc, hist = outs[0]
+    assert sum(a.get("r", "").startswith("HB-") for a in doc["aircraft"]) >= 6
+    assert sum(k.startswith("json/traces/") for k in hist["files"]) >= 2 * 6
+    assert any("/heatmap/" in k for k in hist["files"]) and hist["state"][0] >= 8
+
+
+def test_device_arena_traces_on_the_card_equal_the_cpu(dev, tmp_path, monkeypatch):
+    """An aggregator on the columnar drain with --device-arena and
+    --json-globe-index, its arena on the card and on the CPU: traces,
+    trace files, tiles and state are equal."""
+    import asyncio
+
+    from readsb_tpu_torch import synth
+    from readsb_tpu_torch.app import bulk_drain, main
+    from readsb_tpu_torch.io import beast
+    from readsb_tpu_torch.track import arena as arena_mod
+
+    t0 = 1_760_000_000_000
+    wire = []
+    for i in range(4000):
+        ac, seq = i % 80, i // 80
+        addr = 0x4A0000 + ac
+        if seq % 5 < 3:
+            msg = synth.encode_df17_position(addr, 49.0 + ac * 0.01 + i * 1e-5, 3.0 + ac * 0.01,
+                                             20000 + ac * 100, seq & 1)
+        elif seq % 5 == 3:
+            msg = synth.encode_df17_velocity(addr, 300, 10.0, 0)
+        else:
+            msg = synth.encode_df17_ident(addr, f"AR{ac:04d}")
+        wire.append(beast.encode_synthetic_ts(t0 + 250 * i)
+                    + beast.encode_frame(msg, i * 3000, 0.3))
+    wire = b"".join(wire)
+    now = t0 + 250 * 4000
+    outs = []
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            monkeypatch.setenv("READSB_TPU_PLATFORM", "cpu")
+        else:
+            monkeypatch.delenv("READSB_TPU_PLATFORM", raising=False)
+        app = main.App(main.parse_args(["--net-only", "--quiet", "--lat", "49.5", "--lon", "3.5",
+                                        "--device-arena", "--json-globe-index"]))
+        app.arena = arena_mod.Arena(n=1024, receiver_lat=49.5, receiver_lon=3.5,
+                                    device=app.device)
+        app.now_ms = lambda: now
+        conn = app._beast_input_factory()()
+
+        async def pump():
+            for k in range(0, len(wire), 8192):
+                await asyncio.wait_for(conn.feed(wire[k:k + 8192]), 60)
+                app.drain_net_queue()
+                bulk_drain.materialize(app, now)
+                bulk_drain.materialize_arena(app, now)
+
+        asyncio.run(pump())
+        assert app.arena.state.seen.device.type == device
+        outs.append(_history_outputs(app, str(tmp_path / device)))
+    assert outs[0] == outs[1]
+    assert len(outs[0]["state"][1]) == 80

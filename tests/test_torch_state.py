@@ -1,6 +1,9 @@
 """Persistence in the port against readsb_tpu, at tolerance 0: the zstd
-codec (`io/zstd.py`), state blobs (`io/state.py`, rangeDirs.gz), the App's
---write-state writes and triggers, and --dump-beast (`io/beastdump.py`).
+codec (`io/zstd.py`), state blobs (`io/state.py`, rangeDirs.gz) with and
+without history traces, the App's --write-state writes and triggers, and
+--dump-beast (`io/beastdump.py`).  readsb_tpu's state directories with
+traces load into the port also in a process where readsb_tpu cannot be
+imported: their blobs and their trace chunks pickle readsb_tpu's classes.
 
 readsb_tpu's `zstandard` is used here only, as the other codec: its
 compressed bytes depend on the library's version, so decompressed content
@@ -15,8 +18,11 @@ import gzip
 import io
 import json
 import os
+import dataclasses
 import pickle
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -26,17 +32,26 @@ from readsb_tpu.app import main as jax_main
 from readsb_tpu.decode import fields as jax_fields
 from readsb_tpu.decode.score import RawFrame as JaxRawFrame
 from readsb_tpu.io import beast as jax_beast
+from readsb_tpu.io import history as jax_history
 from readsb_tpu.io import state as jax_state
 from readsb_tpu.track import tracker as jax_tracker
 from readsb_tpu_torch.app import main
 from readsb_tpu_torch.decode import fields
 from readsb_tpu_torch.decode.score import RawFrame
-from readsb_tpu_torch.io import beast, beastdump, state, zstd
-from readsb_tpu_torch.track import tracker
+from readsb_tpu_torch.io import beast, beastdump, history, state, zstd
+from readsb_tpu_torch.track import traces, tracker
+from tests.test_torch_history import _files, _ref_chunk, _run_flight, _trace_key
 from tests.test_torch_sdr import _beast_stream
-from tests.test_torch_track import EPOCH_MS, _frame, _scene, aircraft_state
+from tests.test_torch_track import (
+    EPOCH_MS,
+    PORT_ONLY_FIELDS,
+    _frame,
+    _scene,
+    aircraft_state,
+)
 
 TIMEOUT = 30.0  # seconds for any one await
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECEIVER = dict(receiver_lat=47.45, receiver_lon=8.55, max_range_km=300 * 1.852)
 
 
@@ -255,18 +270,119 @@ def test_a_corrupt_blob_is_skipped(fed, kind, tmp_path):
     assert _state(got) == _state(want) and lost > 0
 
 
-@pytest.mark.parametrize("version", ["v1", "v2"])
-def test_a_blob_with_a_trace_raises_naming_8c(version, tmp_path):
-    """History traces are the second half of ROADMAP item 8c."""
-    jt, _ = _trackers(seed=13, duration_s=4.0, keep_traces=True)
-    assert any(a.trace is not None for a in jt.aircraft.values())
-    d = str(tmp_path / "state")
+def _traced(seed=13):
+    """readsb_tpu's tracker with history traces: a scene, and the flight of
+    test_torch_history (whose trace has chunks) as one more aircraft."""
+    jt, _ = _trackers(seed=seed, duration_s=4.0, keep_traces=True, json_trace_interval=1000)
+    a, _ = _run_flight("ref", 1, 8000)
+    jt.aircraft[a.addr] = a
+    assert sum(a.trace is not None for a in jt.aircraft.values()) >= 4 and a.trace.chunks
+    return jt
+
+
+def _write_reference(jt, version, d):
     if version == "v1":
         _write_v1(jt, d)
     else:
         jax_state.save_state(jt, d, EPOCH_MS)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8c\b"):
-        state.load_state(tracker.Tracker(), d)
+
+
+def _with_traces(t, chunk_reader):
+    """(aircraft_state without the traces, {addr: the trace's content})."""
+    acs = sorted(t.aircraft.values(), key=lambda a: a.addr)
+    held = {a.addr: _trace_key(a.trace, chunk_reader) for a in acs if a.trace is not None}
+    saved = [a.trace for a in acs]
+    for a in acs:
+        a.trace = None
+    try:
+        return aircraft_state(acs), held
+    finally:
+        for a, tr in zip(acs, saved):
+            a.trace = tr
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_a_blob_with_a_trace_loads_equal_to_the_reference(version, tmp_path):
+    """readsb_tpu's state directory with history traces loads into the
+    port as into readsb_tpu: every aircraft, every trace (chunks pickled
+    with readsb_tpu's State included); the port's trace files from it
+    equal readsb_tpu's."""
+    jt = _traced()
+    d = str(tmp_path / "state")
+    _write_reference(jt, version, d)
+    want, got = jax_tracker.Tracker(), tracker.Tracker()
+    assert state.load_state(got, d) == jax_state.load_state(want, d) == len(jt.aircraft)
+    assert _with_traces(got, traces.load_chunk) == _with_traces(want, _ref_chunk)
+    # v1 leaves out a trace's buffered point and dirty flag, in both packages
+    lost = ("buffered", "dirty") if version == "v1" else ()
+    kept = lambda held: {k: {f: v for f, v in tr.items() if f not in lost}  # noqa: E731
+                         for k, tr in held.items()}
+    assert kept(_with_traces(want, _ref_chunk)[1]) == kept(_with_traces(jt, _ref_chunk)[1])
+    now = EPOCH_MS + 30 * 3_600_000
+    history.write_traces(got, str(tmp_path / "port"), now, time_budget_s=None)
+    jax_history.write_traces(want, str(tmp_path / "ref"), now, time_budget_s=None)
+    assert _files(tmp_path / "port") == _files(tmp_path / "ref")
+    # the port's own save of the traces it loaded round-trips
+    d2 = str(tmp_path / "again")
+    state.save_state(got, d2, EPOCH_MS)
+    back = tracker.Tracker()
+    assert state.load_state(back, d2) == len(jt.aircraft)
+    assert _with_traces(back, traces.load_chunk)[1] == _with_traces(got, traces.load_chunk)[1]
+
+
+_ISOLATED = """
+import dataclasses, json, sys
+sys.modules["readsb_tpu"] = None  # importing readsb_tpu, or anything under it, fails
+sys.modules["zstandard"] = None
+from readsb_tpu_torch.io import history, state
+from readsb_tpu_torch.track import tracker
+t = tracker.Tracker()
+n = state.load_state(t, sys.argv[1])
+history.write_traces(t, sys.argv[2], int(sys.argv[3]), time_budget_s=None)
+json.dump({"n": n, "traces": {str(a.addr): [dataclasses.asdict(s) for s in a.trace.full()]
+                              for a in t.aircraft.values() if a.trace is not None}},
+          open(sys.argv[4], "w"))
+"""
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_reference_traces_load_where_readsb_tpu_cannot_be_imported(version, tmp_path):
+    """The loader and the trace writer read readsb_tpu's pickled trace
+    classes, in the blobs and in the chunks, without importing it (or
+    zstandard): in a process where neither imports."""
+    jt = _traced()
+    d = str(tmp_path / "state")
+    _write_reference(jt, version, d)
+    now = EPOCH_MS + 30 * 3_600_000
+    out = tmp_path / "out.json"
+    r = subprocess.run([sys.executable, "-c", _ISOLATED, d, str(tmp_path / "port"), str(now),
+                        str(out)], cwd=REPO, capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(out.read_text())
+    want = jax_tracker.Tracker()
+    assert got["n"] == jax_state.load_state(want, d) == len(jt.aircraft)
+    jax_history.write_traces(want, str(tmp_path / "ref"), now, time_budget_s=None)
+    assert _files(tmp_path / "port") == _files(tmp_path / "ref")
+    # the traces after the sweep (which marks the legs of the live points)
+    assert got["traces"] == {str(a.addr): [dataclasses.asdict(s) for s in a.trace.full()]
+                             for a in want.aircraft.values() if a.trace is not None}
+
+
+def test_port_v1_records_equal_the_reference(tmp_path):
+    """The port's v1 writer (_aircraft_to_dict, traces included) gives
+    readsb_tpu's records, and they load back."""
+    jt = _traced()
+    d = str(tmp_path / "v1")
+    _write_v1(jt, d)
+    pt = tracker.Tracker()
+    state.load_state(pt, d)
+    key = lambda rec: {k: v for k, v in rec.items() if k not in PORT_ONLY_FIELDS}  # noqa: E731
+    for addr, a in sorted(pt.aircraft.items()):
+        got = json.loads(json.dumps(state._aircraft_to_dict(a)))
+        want = json.loads(json.dumps(jax_state._aircraft_to_dict(jt.aircraft[addr])))
+        assert key(got) == want
+    assert any("__trace" in state._aircraft_to_dict(a) for a in pt.aircraft.values())
 
 
 # --- the App: startup restore, triggers, periodic and final writes ---------------

@@ -262,10 +262,9 @@ def aircraft_state(aircraft) -> str:
 
 
 def _counters(t):
-    """Every number the tracker keeps, and each aircraft's whole state
-    (readsb_tpu's trace setting aside: the port's tracker has no traces)."""
+    """Every number the tracker keeps, and each aircraft's whole state."""
     out = {k: v for k, v in vars(t).items() if isinstance(v, (int, float))
-           and not isinstance(v, bool) and k != "json_trace_interval"}
+           and not isinstance(v, bool)}
     out["pos_by_type"] = dict(t.pos_by_type)
     out["aircraft"] = aircraft_state(t.aircraft.values())
     return out
