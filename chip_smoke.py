@@ -89,6 +89,20 @@ and then history:
                    at 10,000 aircraft, and the aggregator's frames/s with
                    and without --json-globe-index
 
+and then the sharded mesh (readsb_tpu_torch/parallel):
+
+  mesh             (a) dryrun_multichip(8) on eight slots of the card:
+                   both programs' frames == the unsharded demod_block and
+                   every field == the CPU run's; (b) the gated program at
+                   k_per_shard=4096, k2=512 on a (chan=2, time=4) mesh over
+                   64 channels x 524,288 samples of the app phase's
+                   104-aircraft scene (converted by mag_uc8): no overflow,
+                   frames == the unsharded demod_block per channel, >= 90%
+                   of the truth, the step timed (CUDA events, median of 5)
+                   and profiled beside MultiDemodulator(64) on the same
+                   samples; (c) the two-process run, two ranks on the card
+                   with gloo for control
+
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
@@ -122,7 +136,12 @@ import torch
 
 from readsb_tpu_torch import BUILD_DIR, pipeline
 from readsb_tpu_torch.app import main as app_main
-from readsb_tpu_torch.constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT, SAMPLE_RATE
+from readsb_tpu_torch.constants import (
+    BLOCK_SAMPLES,
+    PREAMBLE_THRESHOLD_DEFAULT,
+    SAMPLE_RATE,
+    TRAILING_SAMPLES,
+)
 from readsb_tpu_torch.decode.mode_ac import modec_to_modea
 from readsb_tpu_torch.io import beast as beast_io
 from readsb_tpu_torch.io import json_out, sdr, zstd
@@ -1772,6 +1791,196 @@ def history_phase(card: str, chunks: list[bytes]) -> dict[str, int]:
     return card_run["launches"]
 
 
+# the mesh phase: the sharded demodulator (readsb_tpu_torch/parallel) on a
+# (chan=2, time=4) mesh of eight slots on the card.  Part (b) is
+# BASELINE.json's 64-channel long-capture configuration: the app phase's
+# 104-aircraft scene, 64 channels x 4 x 131072 samples, the gated program
+# at the TPU's shape (k_per_shard=4096, k2=512)
+MESH_SLOTS = 8
+MESH_T = 4 * BLOCK_SAMPLES  # samples per channel: 0.218 s
+MESH_S = 0.22  # seconds rendered per channel
+MESH_K, MESH_K2 = 4096, 512
+MESH_REF_K = 32768  # the unsharded reference's capacity per channel
+MESH_USED = ("mag_uc8", "dense_scan", "extract_classify_v3")  # (b): conversion + gated step
+MESH_DRYRUN_USED = ("dense_scan", "extract_syndromes", "extract_classify_v3")  # (a)
+
+
+def native_frames(cols, scan_len: int) -> list[tuple[str, int]]:
+    """parallel.dryrun.frames_of through the native finalizer: the same
+    frames as the Scorer, fast enough for (b)'s 64 channels."""
+    from readsb_tpu_torch.native import NativeFinalizer
+
+    fr, _ = NativeFinalizer().finalize_block(cols[0], len(cols[0]), *cols[1:], scan_len=scan_len)
+    return [(f.msg.hex(), f.scan_offset) for f in fr]
+
+
+def check_mesh_kernels(shards, tbl: torch.Tensor, card: str) -> None:
+    """#4, #5 and #2 at the mesh phase's shapes (one row of shard (0, 1)
+    with its halo; K = MESH_K and 512 candidate rows) == their plain
+    versions on the card."""
+    buf = torch.cat([shards[0][0][0, -TRAILING_SAMPLES:], shards[0][1][0]])
+    magp = demod_ops.pad_mag(buf)
+    err_dense = max_abs_err(kernels.dense_scan(magp, PREAMBLE_THRESHOLD_DEFAULT),
+                            kernels.dense_scan_plain(magp, PREAMBLE_THRESHOLD_DEFAULT))
+    corr, pw, _, _ = demod_ops.dense_stage(buf, PREAMBLE_THRESHOLD_DEFAULT, raw_uc8=False)
+    t_l = MESH_T // 4
+    offs, _, _, rows = demod_ops.candidate_rows(corr, pw, k=MESH_K, l=64, scan_len=t_l)
+    err_cls = max_abs_err([kernels.extract_classify_v3(rows, offs, tbl)],
+                          [kernels.extract_classify_v3_plain(rows, offs, tbl)])
+    err_ex = max_abs_err([kernels.extract_syndromes(rows[:512], offs[:512])],
+                         [kernels.extract_syndromes_plain(rows[:512], offs[:512])])
+    check(err_dense == 0 and err_cls == 0 and err_ex == 0,
+          f"mesh: a kernel differs from its plain version at the mesh's shapes "
+          f"(dense_scan {err_dense}, extract_classify_v3 {err_cls}, extract_syndromes {err_ex})")
+    log(f"mesh: dense_scan at n={magp.shape[0]}, extract_classify_v3 at K={MESH_K} and "
+        f"extract_syndromes at K=512 == their plain versions on {card}")
+
+
+def mesh_phase(card: str) -> dict[str, int]:
+    """(a) dryrun_multichip(8) on the card, both programs == their CPU run
+    bit for bit; (b) the gated program over 64 channels x 524,288 samples,
+    frames == the unsharded demod_block per channel, >= 90% of the truth,
+    the step's time and device-busy share beside MultiDemodulator(64) on
+    the same samples; (c) the two-process run on the card.  Returns the
+    launches of (a)'s dryrun_multichip call and of (b)'s conversion and
+    first step, each counted from 0 on its own."""
+    from readsb_tpu_torch.ops.gate import TBL_SENTINEL
+    from readsb_tpu_torch.parallel import mesh as pmesh
+    from readsb_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+        mesh_slots,
+        sharded_columns,
+        unsharded_columns,
+    )
+
+    # (b)'s traffic first: rendered in worker processes, converted on the card
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    n = N_CHAN
+    group = n // APP_GROUPS
+    paths = [os.path.join(tmp.name, f"mesh{c:02d}.uc8.dat") for c in range(n)]
+    jobs = [(paths[c], "uc8", MESH_S, 900 + c, 0x400000 + (c // group) * 0x10000)
+            for c in range(n)]
+    t0 = time.perf_counter()
+    addrs = sorted({int(h, 16) for a in render_captures(jobs) for h in a})
+    truth = [{t["hex"] for t in build_traffic_capture(MESH_S, APP_AIRCRAFT, seed, addr_base=b).truth
+              if t["t"] * SAMPLE_RATE + 300 < MESH_T} for _, _, _, seed, b in jobs]
+    words = np.stack([np.fromfile(p, dtype=np.uint16, count=MESH_T) for p in paths])
+    tmp.cleanup()
+    t_render = time.perf_counter() - t0
+    check(len(addrs) >= 100, f"the mesh scene has {len(addrs)} aircraft, not 100")
+    tbl_np = np.full(-(-len(addrs) // 128) * 128, TBL_SENTINEL, np.int32)
+    tbl_np[: len(addrs)] = addrs
+    tbl = torch.from_numpy(tbl_np).to(DEV)
+    mesh = pmesh.make_mesh(2, 4, mesh_slots(MESH_SLOTS, "cuda"))
+    gfn = pmesh.build_sharded_gated_demod(mesh, k_per_shard=MESH_K, k2=MESH_K2)
+
+    # (a) the dry run on the card, counted on its own (its unsharded
+    # reference included), the CPU run beside it
+    reset_counts()
+    t0 = time.perf_counter()
+    out, gout = dryrun_multichip(MESH_SLOTS)
+    torch.cuda.synchronize()
+    t_dry = time.perf_counter() - t0
+    dry_launches = read_counts()
+    check_launched(dry_launches, MESH_DRYRUN_USED, "mesh (a) dryrun_multichip")
+    cpu, gcpu = dryrun_multichip(MESH_SLOTS, device="cpu")
+    for what, a, b in (("ungated", out, cpu), ("gated", gout, gcpu)):
+        for f in a._fields:
+            x = getattr(a, f)
+            check(x.device.type == "cuda" and torch.equal(x.cpu(), getattr(b, f)),
+                  f"mesh (a): the {what} program's {f} on the card differs from the CPU run")
+    log(f"mesh (a): dryrun_multichip({MESH_SLOTS}) on {MESH_SLOTS} slots of the card in "
+        f"{t_dry:.2f} s: both programs' frames == the unsharded demod_block, every field == "
+        f"the CPU run's; launches {dry_launches} on {card}")
+
+    # (b) the 64-channel gated step: its conversion and first step counted
+    # from 0; the kernels at the mesh's shapes against their plain versions
+    # come after the counts are read
+    def step():
+        return gfn(shards, tbl)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words_dev = torch.from_numpy(words).to(DEV)
+    shards = pmesh.shard_stream(kernels.mag_uc8(words_dev.reshape(-1)).reshape(n, MESH_T), mesh)
+    g = step()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = read_counts()
+    check_launched(launches, MESH_USED, "mesh (b)'s counted step")
+    row_calls = n * mesh.shape["time"]
+    check(launches["mag_uc8"] == 1 and launches["dense_scan"] == row_calls
+          and launches["extract_classify_v3"] == row_calls,
+          f"mesh (b): expected 1 conversion and {row_calls} dense_scan and extract_classify_v3 "
+          f"launches (one per row of each shard), got {launches}")
+    check_mesh_kernels(shards, tbl, card)
+    n_cand, n_keep = g.n_cand.cpu(), g.n_keep.cpu()
+    check(int(n_cand.max()) <= MESH_K and int(n_keep.max()) <= MESH_K2,
+          f"mesh (b): a shard overflows (n_cand {int(n_cand.max())} > {MESH_K} or n_keep "
+          f"{int(n_keep.max())} > {MESH_K2})")
+    mags = torch.cat([torch.cat(row, dim=1) for row in shards], dim=0)
+    t0 = time.perf_counter()
+    got_n = want_n = 0
+    for ch in range(n):
+        got = native_frames(sharded_columns(g, ch), MESH_T)
+        want = native_frames(unsharded_columns(mags[ch], DEV, k=MESH_REF_K), MESH_T)
+        check(got == want, f"mesh (b): channel {ch}: {len(got)} sharded frames != {len(want)} "
+                           f"unsharded")
+        got_n += len({h for h, _ in got} & truth[ch])
+        want_n += len(truth[ch])
+    t_check = time.perf_counter() - t0
+    check(got_n >= 0.9 * want_n, f"mesh (b): {got_n} of {want_n} frames of the truth recovered")
+
+    steps = [time_ms(step, reps=1, warm=0) for _ in range(5)]
+    ms_step = statistics.median(steps)
+    wall, busy, prof_rows = profile_dispatch(step, reps=1)
+    samples = n * MESH_T
+    raw_chunks = [words[c].tobytes() for c in range(n)]
+
+    def make_multi():
+        return pipeline.MultiDemodulator(n, blocks_per_batch=4, use_native=True, device=DEV)
+
+    m0 = make_multi()
+    run_multi(m0, raw_chunks)  # escalates the capacities once
+
+    def make_warm():
+        m = make_multi()
+        m.k, m.compact_l, m.gate_k2, m.gate_keep_l = m0.k, m0.compact_l, m0.gate_k2, m0.gate_keep_l
+        return m
+
+    t_multi = host_median_s(lambda m: run_multi(m, raw_chunks), make_warm)
+    log(f"mesh (b): {n} channels x {MESH_T} samples ({samples / 1e6:.1f} M magnitudes, "
+        f"{len(addrs)} aircraft, rendered in {t_render:.1f} s), gated program at k_per_shard="
+        f"{MESH_K}, k2={MESH_K2} on (chan=2, time=4), {MESH_SLOTS} slots of the card: n_cand per "
+        f"shard {int(n_cand.min())}-{int(n_cand.max())}, n_keep {int(n_keep.min())}-"
+        f"{int(n_keep.max())}, gate-dropped {int(g.pre_drop.sum())}; frames == the unsharded "
+        f"demod_block on every channel (checked in {t_check:.1f} s); {got_n} of {want_n} frames "
+        f"of the truth recovered ({got_n / want_n * 100:.1f}%) on {card}")
+    log(f"mesh (b) step: {ms_step:.1f} ms by CUDA events (median of 5: "
+        f"{', '.join(f'{x:.1f}' for x in steps)}), {samples / ms_step / 1e3:.1f} MS/s; first "
+        f"step with its conversion {t_first * 1e3:.1f} ms on the host clock; launches of the "
+        f"counted conversion and step: {launches}; under torch.profiler wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({busy / wall * 100:.1f}%), {sum(r[1] for r in prof_rows)} device launches on {card}")
+    log(f"mesh (b) beside it: MultiDemodulator({n}, blocks_per_batch=4) over the same samples "
+        f"(upload, convert, dispatch, readback, host finalize): {t_multi * 1e3:.1f} ms = "
+        f"{samples / t_multi / 1e6:.1f} MS/s (median of 3) on {card}")
+
+    # (c) the two-process run: two ranks on the card, gloo for control
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "readsb_tpu_torch.parallel.dcn_dryrun"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=300)
+    t_dcn = time.perf_counter() - t0
+    check(r.returncode == 0 and "dcn_dryrun OK" in r.stdout,
+          f"mesh (c): the two-process run exited {r.returncode}: {r.stdout[-1500:]} "
+          f"{r.stderr[-1500:]}")
+    for line in r.stdout.splitlines():
+        log(f"mesh (c): {line}")
+    log(f"mesh (c): two ranks on the card with gloo for control in {t_dcn:.1f} s on {card}")
+    return dry_launches, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2316,6 +2525,9 @@ def main() -> None:
     # --- history on the card: traces, tiles, heatmaps, database, Prometheus --------
     history_launches = history_phase(card, agg_chunks)
 
+    # --- the sharded mesh on the card: dry run, 64 channels, two processes ----------
+    mesh_dryrun_launches, mesh_launches = mesh_phase(card)
+
     entries = [
         {
             "name": "dense_scan_uc8", "route": "cuda",
@@ -2383,12 +2595,15 @@ def main() -> None:
     ]
     for entry in entries:
         # the launches of the app phase's three counted routes, of the
-        # network phase's feeder, of the SDR phase's three routes and of
-        # the history phase's --ifile App
+        # network phase's feeder, of the SDR phase's three routes, of the
+        # history phase's --ifile App, of the mesh phase's dry run (a) and
+        # of its 64-channel conversion and step (b)
         entry["app_launches"] = app_launches[entry["name"]]
         entry["net_launches"] = net_launches[entry["name"]]
         entry["sdr_launches"] = sdr_launches[entry["name"]]
         entry["history_launches"] = history_launches[entry["name"]]
+        entry["mesh_dryrun_launches"] = mesh_dryrun_launches[entry["name"]]
+        entry["mesh_launches"] = mesh_launches[entry["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

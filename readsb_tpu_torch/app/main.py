@@ -340,8 +340,9 @@ class App:
         return dev
 
     def _on_device(self, fn, *args):
-        """fn(*args) with the demodulator's device current in this thread:
-        the kernel libraries record the device they are loaded on."""
+        """fn(*args) with the demodulator's device current in this thread
+        (the current device is per thread), so that what fn does on the
+        current device happens on the demodulator's."""
         dev = self._demod.device
         if dev.type != "cuda":
             return fn(*args)

@@ -49,8 +49,8 @@
 //     buffer in shared memory as coalesced 16-byte stores; a thread
 //     writes its own plane words (coalesced across the warp).
 //   * The uc8 fi^2 table is made once per process on the host
-//     (ops/convert.py::sq_table_np) and copied to the device when the
-//     library is loaded (set_sq_table); a block copies its 1 KB to shared
+//     (ops/convert.py::sq_table_np) and copied to each device the library
+//     is made ready on (set_sq_table); a block copies its 1 KB to shared
 //     memory and builds nothing.
 
 #pragma once
@@ -79,7 +79,8 @@ static_assert(kThreads == 256, "the fi^2 table is copied one entry per thread");
 __device__ float g_sq[256];  // fi^2, convert.c:45-50
 
 // Host pointer: float32[256] (readsb_tpu_torch/ops/convert.py::sq_table_np).
-// Call once per process and library, before the first launch.
+// Call once per library and device, with that device current, before its
+// first launch there.
 inline int set_sq_table(const void* sq) {
     return static_cast<int>(cudaMemcpyToSymbol(g_sq, sq, sizeof(float) * 256));
 }
@@ -378,7 +379,8 @@ __global__ void __launch_bounds__(kThreads, 3) dense_tile(
     store_prefix_sums(out4, m2, oh, ol, cs_hi + base, cs_lo + base);
 }
 
-// Once per library, on its device: dense_tile's shared memory above 48 KB.
+// Once per library and device, with that device current: dense_tile's
+// shared memory above 48 KB there.
 template <class Loader>
 cudaError_t prepare() {
     return cudaFuncSetAttribute(dense_tile<Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize,

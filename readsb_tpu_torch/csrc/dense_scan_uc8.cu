@@ -14,7 +14,7 @@ extern "C" int rtpu_init(int* device) {
     return rtpu::init(device, [](int) { return dense::prepare<dense::Uc8Loader>(); });
 }
 
-// The fi^2 table, float32[256]; once per process, before the first launch.
+// The fi^2 table, float32[256]; once per device, before the first launch there.
 extern "C" int rtpu_dense_set_table(const void* sq) { return dense::set_sq_table(sq); }
 
 // n % 8192 == 0 (the wrapper asks for n % 65536 == 0); scratch holds

@@ -47,8 +47,8 @@ struct Phase {
 };
 
 // Host pointer: syn_bytes uint32[14, 256] (readsb_tpu_torch/ops/kernels.py::
-// syndrome_bytes_np).  Call once per process and library, before the first
-// launch.
+// syndrome_bytes_np).  Call once per library and device, with that device
+// current, before its first launch there.
 inline int set_tables(const void* syn_bytes) {
     return static_cast<int>(
         cudaMemcpyToSymbol(g_syn_bytes, syn_bytes, sizeof(uint32_t) * kMsgBytes * 256));
@@ -247,25 +247,33 @@ __global__ void __launch_bounds__(kWarps * 32, 2) cand_rows(
     }
 }
 
-inline int g_sms = 0;  // SMs of the library's device (prepare)
+constexpr int kMaxDevices = 64;
+inline int g_sms[kMaxDevices] = {};  // SMs of each device the library was prepared on
 
-// Once per library, on its device: the SM count and cand_rows' shared
-// memory above 48 KB.
+// Once per library and device, with that device current: its SM count and
+// cand_rows' shared memory above 48 KB there.
 template <class Post>
 cudaError_t prepare(int device) {
-    cudaError_t e = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, device);
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    cudaError_t e = cudaDeviceGetAttribute(&g_sms[device], cudaDevAttrMultiProcessorCount, device);
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(cand_rows<Post>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kRowsShared + Post::kSharedMax));
     return e;
 }
 
-// The launch on one stream, after prepare<Post>.  Returns the first CUDA error.
+// The launch on one stream of the current device, after prepare<Post> on
+// it.  Returns the first CUDA error.
 template <class Post>
 int launch_rows(const void* rows, const void* offsets, long long k, void* out,
                 const Post& post, void* stream) {
+    int device = 0;
+    const cudaError_t de = cudaGetDevice(&device);
+    if (de != cudaSuccess) return static_cast<int>(de);
+    if (device < 0 || device >= kMaxDevices || g_sms[device] == 0)
+        return static_cast<int>(cudaErrorInitializationError);
     const long long blocks = (k + 32 * kWarps - 1) / (32 * kWarps);
-    const long long most = 2LL * g_sms;
+    const long long most = 2LL * g_sms[device];
     cand_rows<Post><<<static_cast<unsigned>(blocks < most ? blocks : most), kWarps * 32,
                       kRowsShared + post.shared_bytes(), static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(rows), static_cast<const int32_t*>(offsets),

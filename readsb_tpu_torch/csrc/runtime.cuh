@@ -1,10 +1,11 @@
 // What every kernel library exports beside its entry point: the text of a
 // CUDA error code, for the Python wrapper's exception, and rtpu_init.
 //
-// A library's tables and function attributes belong to the device that was
-// current when it was loaded: each library's rtpu_init reports that device
-// (readsb_tpu_torch/ops/kernels.py records it and refuses tensors on any
-// other) and does, once, what its launches need of it.
+// A library is made ready once per device: readsb_tpu_torch/ops/kernels.py
+// calls its rtpu_init and table setters with that device current, the first
+// time a tensor on it reaches the library, and launches with the tensor's
+// device current.  Tables (__device__ symbols) and function attributes are
+// per device in CUDA; a host value that prepare fills is kept per device.
 
 #pragma once
 

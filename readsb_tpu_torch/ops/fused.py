@@ -158,7 +158,6 @@ def fused_demod_tiles(
     buf = buf.contiguous()
     if buf.data_ptr() % 16:  # the kernel reads 16-byte chunks
         buf = buf.clone()
-    lib = kernels._launcher("fused_demod", buf)
     dev = buf.device
     n = buf.shape[0]
     rows = (n // TILE) * cap
@@ -169,13 +168,12 @@ def fused_demod_tiles(
     cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
     cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = torch.empty(kernels.dense_scratch_words(n), dtype=torch.int32, device=dev)
-    rc = lib.fused_demod(
-        buf.data_ptr(), n, int(threshold), int(cap), int(L_ROW),
+    kernels._launch(
+        "fused_demod", buf, buf.data_ptr(), n, int(threshold), int(cap), int(L_ROW),
         int(seg_stride or 0), int(seg_valid or 0), limit,
         comb.data_ptr(), offsets.data_ptr(), live.data_ptr(), meta.data_ptr(),
-        cs_hi.data_ptr(), cs_lo.data_ptr(), scratch.data_ptr(), kernels._stream(buf),
+        cs_hi.data_ptr(), cs_lo.data_ptr(), scratch.data_ptr(),
     )
-    kernels._check(lib, rc, "fused_demod")
     fused_demod_tiles.launches += 1
     return comb, offsets, live, meta, cs_hi, cs_lo
 

@@ -25,9 +25,13 @@ schedule of csrc/extract_taps.cuh), and 5 and 6 the classifier
 (csrc/classify.cuh).  The seventh kernel, the fused per-tile demodulator,
 has its wrapper in ops/fused.py and is built and loaded here.
 
-A library belongs to the device that is current when it is loaded: its
-tables are copied there and its launch attributes set there, once.  A
-wrapper given a tensor on another device raises ValueError.
+Each library is loaded once per process and made ready once per CUDA
+device: the first time a tensor on cuda:k reaches it, its rtpu_init and
+table setters run with cuda:k current, which copies its tables there and
+sets its launch attributes there.  Every launch runs with the tensor's
+device current, on that device's current stream, so one process launches
+on any card.  A CUDA wrapper given a tensor that is not on a CUDA device
+raises ValueError.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ DENSE_TILE = 8192  # samples per CUDA block of the dense scan (csrc/dense_scan.c
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_devices: dict[str, int] = {}  # the device index each library was loaded on
+_ready: set[tuple[str, int]] = set()  # (library, CUDA device index) made ready there
 
 
 # ---------------------------------------------------------------------------
@@ -140,51 +144,69 @@ _ARGTYPES = {
 _EXTRACT_LIBS = ("extract_syndromes", "extract_classify_v3", "extract_classify", "fused_demod")
 
 
-def _lib(name: str) -> ctypes.CDLL:
+def _load(name: str) -> ctypes.CDLL:
+    """Build (if stale) and load the library `name`, its entry points typed."""
+    build()
+    lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
+    lib.rtpu_cuda_error_string.restype = ctypes.c_char_p
+    lib.rtpu_cuda_error_string.argtypes = [ctypes.c_int]
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
+    lib.rtpu_init.restype = ctypes.c_int
+    lib.rtpu_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    if name in _EXTRACT_LIBS:
+        lib.rtpu_extract_set_tables.restype = ctypes.c_int
+        lib.rtpu_extract_set_tables.argtypes = [_P]
+    if name == "dense_scan_uc8":
+        lib.rtpu_dense_set_table.restype = ctypes.c_int
+        lib.rtpu_dense_set_table.argtypes = [_P]
+    return lib
+
+
+def _prepare(name: str, lib: ctypes.CDLL, index: int) -> None:
+    """Make `lib` ready on cuda:index, which is current: its tables, launch
+    attributes and SM count there."""
+    device = ctypes.c_int(-1)
+    _check(lib, lib.rtpu_init(ctypes.byref(device)), "rtpu_init")
+    if device.value != index:
+        raise RuntimeError(f"{name}: rtpu_init ran on cuda:{device.value}, not cuda:{index}")
+    if name in _EXTRACT_LIBS:
+        _check(lib, lib.rtpu_extract_set_tables(syndrome_bytes_np().ctypes.data),
+               "rtpu_extract_set_tables")
+    if name == "dense_scan_uc8":
+        _check(lib, lib.rtpu_dense_set_table(sq_table_np().ctypes.data), "rtpu_dense_set_table")
+
+
+def _lib(name: str, index: int) -> ctypes.CDLL:
+    """The library `name`, loaded at first use and ready on cuda:index."""
     with _lock:
         if name not in _libs:
-            build()
-            lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
-            lib.rtpu_cuda_error_string.restype = ctypes.c_char_p
-            lib.rtpu_cuda_error_string.argtypes = [ctypes.c_int]
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = _ARGTYPES[name]
-            # the current device: tables, attributes and the SM count are its
-            lib.rtpu_init.restype = ctypes.c_int
-            lib.rtpu_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            device = ctypes.c_int(-1)
-            _check(lib, lib.rtpu_init(ctypes.byref(device)), "rtpu_init")
-            if name in _EXTRACT_LIBS:
-                lib.rtpu_extract_set_tables.restype = ctypes.c_int
-                lib.rtpu_extract_set_tables.argtypes = [_P]
-                _check(lib, lib.rtpu_extract_set_tables(syndrome_bytes_np().ctypes.data),
-                       "rtpu_extract_set_tables")
-            if name == "dense_scan_uc8":
-                lib.rtpu_dense_set_table.restype = ctypes.c_int
-                lib.rtpu_dense_set_table.argtypes = [_P]
-                _check(lib, lib.rtpu_dense_set_table(sq_table_np().ctypes.data),
-                       "rtpu_dense_set_table")
-            _devices[name] = device.value
-            _libs[name] = lib
-        return _libs[name]
+            _libs[name] = _load(name)
+        lib = _libs[name]
+        if (name, index) not in _ready:
+            with torch.cuda.device(index):
+                _prepare(name, lib, index)
+            _ready.add((name, index))
+        return lib
 
 
-def check_device(loaded_on: int, device: torch.device, what: str) -> None:
-    """Raise ValueError unless `device` is the CUDA device a library was
-    loaded on: its tables and launch attributes exist there only."""
-    if device.type != "cuda" or device.index != loaded_on:
-        raise ValueError(
-            f"{what}: the tensor is on {device}, but the kernel library was loaded on "
-            f"cuda:{loaded_on}; the port uses one device per process (ROADMAP Queue 1 item 11)"
-        )
+def check_device(device: torch.device, what: str) -> None:
+    """Raise ValueError unless `device` is a CUDA device: the kernels launch
+    on CUDA devices only (a CPU tensor takes the plain version before this)."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}: the tensor is on {device}, not on a CUDA device")
 
 
-def _launcher(name: str, t: torch.Tensor) -> ctypes.CDLL:
-    """The library `name`, loaded at first use, for a launch on t's device."""
-    lib = _lib(name)
-    check_device(_devices[name], t.device, name)
-    return lib
+def _launch(name: str, t: torch.Tensor, *args) -> None:
+    """Launch the library `name`'s entry point on t's device: args, then the
+    stream, with that device current.  Raises on a CUDA error."""
+    check_device(t.device, name)
+    index = t.device.index
+    lib = _lib(name, index)
+    with torch.cuda.device(index):
+        rc = getattr(lib, name)(*args, _stream(t))
+    _check(lib, rc, name)
 
 
 def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -310,13 +332,11 @@ def _launch_dense(name: str, samples: torch.Tensor, threshold: int):
     cs_hi = torch.empty(n, dtype=torch.int32, device=dev)
     cs_lo = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = torch.empty(dense_scratch_words(n), dtype=torch.int32, device=dev)
-    lib = _launcher(name, samples)
-    rc = getattr(lib, name)(
-        samples.data_ptr(), n, int(threshold),
+    _launch(
+        name, samples, samples.data_ptr(), n, int(threshold),
         corr.data_ptr(), pwords.data_ptr(), cs_hi.data_ptr(), cs_lo.data_ptr(),
-        scratch.data_ptr(), _stream(samples),
+        scratch.data_ptr(),
     )
-    _check(lib, rc, name)
     return corr, pwords, cs_hi, cs_lo
 
 
@@ -392,9 +412,7 @@ def mag_uc8(words: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.uint16, device=words.device)
     if n == 0:
         return out
-    lib = _launcher("mag_uc8", words)
-    rc = lib.mag_uc8(words.data_ptr(), n, out.data_ptr(), _stream(words))
-    _check(lib, rc, "mag_uc8")
+    _launch("mag_uc8", words, words.data_ptr(), n, out.data_ptr())
     mag_uc8.launches += 1
     return out
 
@@ -546,11 +564,7 @@ def extract_syndromes(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor
     out = torch.empty((k, 128), dtype=torch.int32, device=rows.device)
     if k == 0:
         return out
-    lib = _launcher("extract_syndromes", rows)
-    rc = lib.extract_syndromes(
-        rows.data_ptr(), offsets.data_ptr(), k, out.data_ptr(), _stream(rows)
-    )
-    _check(lib, rc, "extract_syndromes")
+    _launch("extract_syndromes", rows, rows.data_ptr(), offsets.data_ptr(), k, out.data_ptr())
     extract_syndromes.launches += 1
     return out
 
@@ -642,15 +656,13 @@ def _launch_classify(wrapper, rows, offsets, known_tbl, nfix: int, fix_df: bool)
     out = torch.empty((k, 128), dtype=torch.int32, device=rows.device)
     if k == 0:
         return out
-    lib = _launcher(name, rows)
     t112, t56, dfd = _device_tables(int(nfix), bool(fix_df), rows.device)
-    rc = getattr(lib, name)(
-        rows.data_ptr(), offsets.data_ptr(), k,
+    _launch(
+        name, rows, rows.data_ptr(), offsets.data_ptr(), k,
         known_tbl.data_ptr(), known_tbl.shape[0],
         t112.data_ptr(), t112.shape[0], t56.data_ptr(), t56.shape[0], dfd.data_ptr(),
-        out.data_ptr(), _stream(rows),
+        out.data_ptr(),
     )
-    _check(lib, rc, name)
     wrapper.launches += 1
     return out
 

@@ -240,7 +240,7 @@ def _check_batch(state: ArenaState, b: UpdateBatch) -> None:
         if t.device != dev:
             raise ValueError(
                 f"arena_update: batch field {name} is on {t.device}, the arena "
-                f"state on {dev}; the port uses one device per process"
+                f"state on {dev}; a batch must be on the arena's device"
             )
 
 

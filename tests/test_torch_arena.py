@@ -293,7 +293,7 @@ def test_arena_refuses_a_batch_on_another_device():
                                  (2,) if k == "cs" else ()), dt)
             for k, dt in arena._BATCH_DTYPES.items()}
     cols["slot"][:] = -1
-    with pytest.raises(ValueError, match="one device per process"):
+    with pytest.raises(ValueError, match="on the arena's device"):
         arena.arena_update(st, arena.upload_batch(cols, "meta"), 1)
     new, ys = arena.arena_update(st, arena.upload_batch(cols, "cpu"), 1)
     assert tuple(ys.shape) == (1, 512, 12)

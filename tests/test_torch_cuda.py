@@ -347,13 +347,17 @@ def test_classify_kernels_at_every_table_size_on_ragged_rows(dev, name, nfix, fi
 
 
 def test_wrappers_accept_the_device_their_library_was_loaded_on(dev):
-    """A cuda:0 tensor launches; the library records device 0."""
-    words = torch.full((65536,), 0x8080, dtype=torch.uint16, device=dev)
-    before = kernels.mag_uc8.launches
-    kernels.mag_uc8(words)
-    assert kernels.mag_uc8.launches == before + 1
-    assert kernels._devices["mag_uc8"] == torch.cuda.current_device() == words.device.index
-    kernels.check_device(words.device.index, words.device, "mag_uc8")
+    """A tensor on each card launches there: the library is made ready on
+    every device a tensor reaches it on, whatever device is current."""
+    for index in range(torch.cuda.device_count()):
+        words = torch.full((65536,), 0x8080, dtype=torch.uint16, device=f"cuda:{index}")
+        before = kernels.mag_uc8.launches
+        with torch.cuda.device(torch.cuda.device_count() - 1 - index):
+            mag = kernels.mag_uc8(words)
+        assert kernels.mag_uc8.launches == before + 1
+        assert mag.device == words.device and mag.tolist() == [363] * 65536
+        assert ("mag_uc8", index) in kernels._ready
+        kernels.check_device(words.device, "mag_uc8")
 
 
 def _bursty_noise(tiles: int, halo: bool, seed: int) -> torch.Tensor:
@@ -518,7 +522,7 @@ def test_arena_refuses_a_batch_on_another_device(dev):
                                  (2,) if k == "cs" else ()), dt)
             for k, dt in arena_mod._BATCH_DTYPES.items()}
     cols["slot"][:] = -1
-    with pytest.raises(ValueError, match="one device per process"):
+    with pytest.raises(ValueError, match="on the arena's device"):
         arena_mod.arena_update(st, arena_mod.upload_batch(cols, "cpu"), 1)
     st, ys = arena_mod.arena_update(st, arena_mod.upload_batch(cols, dev), 1)
     assert ys.device.type == "cuda" and tuple(ys.shape) == (1, 512, 12)
@@ -759,3 +763,89 @@ def test_device_arena_traces_on_the_card_equal_the_cpu(dev, tmp_path, monkeypatc
         outs.append(_history_outputs(app, str(tmp_path / device)))
     assert outs[0] == outs[1]
     assert len(outs[0]["state"][1]) == 80
+
+
+# --- the sharded mesh ------------------------------------------------------------
+
+
+def _mesh_stream():
+    from readsb_tpu_torch.parallel.dryrun import place_frame
+
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 3000, size=(4, 4 * 8192), dtype=np.uint16)
+    for ch in range(4):
+        place_frame(s[ch], 900 + 41 * ch, 0xD00000 + ch, 0)
+        place_frame(s[ch], 8192 - 80, 0xD00000 + ch, 1)
+    return s
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_mesh_on_the_card_equals_the_cpu(dev, gated):
+    """Both programs on eight slots of cuda:0 equal their run on
+    ["cpu"] * 8, every field; the card run launches #4 and #2 (ungated) or
+    #4 and #5 (gated) and no other kernel."""
+    from readsb_tpu_torch.parallel import mesh as pmesh
+
+    s = _mesh_stream()
+    tbl = np.full(128, gate.TBL_SENTINEL, np.int32)
+
+    def run(devices):
+        mesh = pmesh.make_mesh(2, 4, devices)
+        if gated:
+            return pmesh.build_sharded_gated_demod(mesh, k_per_shard=512)(s, tbl)
+        return pmesh.build_sharded_demod(mesh, k_per_shard=512)(s)
+
+    want = run(["cpu"] * 8)
+    wrappers = {n: getattr(kernels, n) for n in ("dense_scan_uc8", "extract_syndromes", "mag_uc8",
+                                                 "dense_scan", "extract_classify_v3",
+                                                 "extract_classify")}
+    wrappers["fused_demod"] = fused.fused_demod_tiles
+    before = {n: w.launches for n, w in wrappers.items()}
+    got = run(["cuda:0"] * 8)
+    launched = {n for n, w in wrappers.items() if w.launches > before[n]}
+    assert launched == ({"dense_scan", "extract_classify_v3"} if gated
+                        else {"dense_scan", "extract_syndromes"})
+    assert wrappers["dense_scan"].launches - before["dense_scan"] == 8 * 2  # one per row
+    for f in got._fields:
+        g = getattr(got, f)
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), getattr(want, f)), f
+
+
+def test_mesh_dryrun_on_the_card(dev):
+    from readsb_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out, gout = dryrun_multichip(8)
+    cpu, gcpu = dryrun_multichip(8, device="cpu")
+    for a, b in ((out, cpu), (gout, gcpu)):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+def test_mesh_two_process_run_on_the_card(dev):
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, "-m", "readsb_tpu_torch.parallel.dcn_dryrun"],
+                       cwd=str(root), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "dcn_dryrun OK" in r.stdout and "on cuda" in r.stdout
+
+
+def test_mesh_over_two_cards_equals_one_card(dev):
+    """Unverified on a one-card machine: it skips there."""
+    from readsb_tpu_torch.parallel import mesh as pmesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    s = _mesh_stream()
+    tbl = np.full(128, gate.TBL_SENTINEL, np.int32)
+    two = ["cuda:0", "cuda:1"] * 4
+    one = ["cuda:0"] * 8
+    for build in (lambda m: pmesh.build_sharded_demod(m, k_per_shard=512)(s),
+                  lambda m: pmesh.build_sharded_gated_demod(m, k_per_shard=512)(s, tbl)):
+        a = build(pmesh.make_mesh(2, 4, two))
+        b = build(pmesh.make_mesh(2, 4, one))
+        for f in a._fields:
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f

@@ -58,6 +58,12 @@ def test_the_history_modules_are_scanned_and_nothing_is_deferred():
                     f"{path.name}: {ast.unparse(node)}"
 
 
+def test_the_parallel_modules_are_scanned():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {f"readsb_tpu_torch/parallel/{m}.py"
+            for m in ("__init__", "mesh", "dryrun", "dcn_dryrun")} <= scanned
+
+
 @pytest.mark.parametrize(
     "make",
     [lambda: Demodulator(), lambda: MultiDemodulator(2),
@@ -228,14 +234,17 @@ def test_new_wrappers_take_the_plain_versions_uncounted_on_the_cpu():
     assert [w.launches for w in wrappers] == before
 
 
-@pytest.mark.parametrize("recorded,device", [(0, torch.device("cuda", 1)), (1, torch.device("cuda", 0)),
-                                             (0, torch.device("cpu"))])
-def test_a_library_refuses_a_tensor_on_another_device(recorded, device):
-    """A library's tables live on the device it was loaded on: any other
-    device is refused, not launched on (no card needed)."""
-    with pytest.raises(ValueError, match="one device per process"):
-        kernels.check_device(recorded, device, "dense_scan")
-    kernels.check_device(device.index or 0, torch.device("cuda", device.index or 0), "dense_scan")
+@pytest.mark.parametrize("device,refused", [("cpu", True), ("meta", True), ("cuda:0", False),
+                                            ("cuda:1", False), ("cuda:7", False)])
+def test_a_library_refuses_a_tensor_on_another_device(device, refused):
+    """A library is made ready on every CUDA device a tensor reaches it on,
+    so any cuda:k is taken; a device that is not a CUDA device is refused,
+    not launched on (no card needed)."""
+    if refused:
+        with pytest.raises(ValueError, match="not on a CUDA device"):
+            kernels.check_device(torch.device(device), "dense_scan")
+    else:
+        kernels.check_device(torch.device(device), "dense_scan")
 
 
 def test_wrap_and_pack_helpers():
