@@ -103,6 +103,22 @@ and then the sharded mesh (readsb_tpu_torch/parallel):
                    samples; (c) the two-process run, two ranks on the card
                    with gloo for control
 
+and then the repo's measurement and compile-check entry points, in process:
+
+  bench            readsb_tpu_torch.bench at C = 64 x 131072, run in
+                   the end-to-end section before the app phase (its
+                   demod_throughput JSON line, five runs of ten dispatches
+                   by CUDA events, is the staged dispatch's reading; the
+                   same dispatch is timed by bench.time_dispatch under
+                   each constant); checked here: only #1 and #2 launched,
+                   one each per dispatch; its frames == the CPU run of the
+                   same chunks, >= 90% of the truth; graft_entry.entry()
+                   == its CPU run in every field, launching only #4 and
+                   #2; the four readsb_tpu_torch.tools benches at reduced
+                   sizes (arena 4096 x 5, net 50,000 frames, serving
+                   10,000 aircraft, state 100,000 aircraft), each JSON
+                   line parsed
+
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
@@ -134,7 +150,7 @@ import time
 import numpy as np
 import torch
 
-from readsb_tpu_torch import BUILD_DIR, pipeline
+from readsb_tpu_torch import BUILD_DIR, bench, graft_entry, pipeline
 from readsb_tpu_torch.app import main as app_main
 from readsb_tpu_torch.constants import (
     BLOCK_SAMPLES,
@@ -149,6 +165,8 @@ from readsb_tpu_torch.io import state as state_io
 from readsb_tpu_torch.ops import demod as demod_ops
 from readsb_tpu_torch.ops import fused, kernels
 from readsb_tpu_torch.ops.convert import mag_uc8_words, uc8_lut_np
+from readsb_tpu_torch import tools as port_tools
+from readsb_tpu_torch.tools import bench_arena, bench_net, bench_serving, state_scale_1m
 from readsb_tpu_torch.synth import (
     build_standard_capture,
     build_traffic_capture,
@@ -210,14 +228,6 @@ def log(msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int = 15, warm: int = 2, inner: int = 1) -> float:
@@ -312,15 +322,6 @@ def frame_key(frames):
 
 def stats_key(s):
     return (s.preambles, s.rejected_bad, s.rejected_unknown_icao, list(s.accepted))
-
-
-def workload(n_blocks: int, seed: int = 3) -> tuple[np.ndarray, np.ndarray, list[dict]]:
-    """bench.py's traffic: 8 aircraft, seed 3, n_blocks blocks of one
-    rendering, as UC8 bytes and as sc16 bytes."""
-    total = n_blocks * BLOCK_SAMPLES
-    cap = build_standard_capture(duration_s=total / 2.4e6 + 0.1, n_aircraft=8, seed=seed)
-    iq = cap.render_iq()[:total]
-    return quantize_uc8(iq), quantize_sc16(iq).view(np.uint8), cap.truth
 
 
 def reset_counts() -> None:
@@ -1981,10 +1982,117 @@ def mesh_phase(card: str) -> dict[str, int]:
     return dry_launches, launches
 
 
+# the bench phase: the four tools at reduced sizes, as their command lines
+BENCH_TOOLS = (
+    (bench_arena, ["4096", "5"]),
+    (bench_net, ["50000"]),
+    (bench_serving, ["10000"]),
+    (state_scale_1m, ["100000"]),
+)
+BENCH_LINE_KEYS = {"metric", "value", "unit", "device", "power_limit_w"}
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed to standard output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def bench_line(out: str, what: str) -> dict:
+    """The JSON object on the last line a tool printed, with the card's
+    name and power limit."""
+    line = json.loads(out.strip().splitlines()[-1])
+    check(BENCH_LINE_KEYS <= set(line), f"{what}: the JSON line lacks {BENCH_LINE_KEYS - set(line)}")
+    check(line["device"] == torch.cuda.get_device_name(0) and line["power_limit_w"] > 0,
+          f"{what}: the JSON line names {line['device']}, {line['power_limit_w']} W")
+    return line
+
+
+def same_fields(got, want, what: str) -> None:
+    for f in want._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        check((g is None) == (w is None), f"{what}: field {f} is None on one side only")
+        check(w is None or (g.is_cuda and torch.equal(g.cpu(), w)),
+              f"{what}: field {f} on the card differs from the CPU run")
+
+
+def run_bench() -> tuple[dict, dict[str, int], float]:
+    """readsb_tpu_torch.bench at full width, counted from 0: (its result,
+    its launches, its seconds).  Only #1 and #2 are launched, as often."""
+    reset_counts()
+    t0 = time.perf_counter()
+    res, out = captured(bench.run, N_CHAN)
+    t_bench = time.perf_counter() - t0
+    launches = read_counts()
+    check_launched(launches, ("dense_scan_uc8", "extract_syndromes"), "readsb_tpu_torch.bench")
+    check(launches["dense_scan_uc8"] == launches["extract_syndromes"],
+          f"the bench launched #1 and #2 unequally: {launches}")
+    for text in out.strip().splitlines():
+        log(f"bench: {text}")
+    line = bench_line(out, "readsb_tpu_torch.bench")
+    check(line == res["line"] and line["metric"] == "demod_throughput"
+          and line["unit"] == "Msamples/s" and line["n_chan"] == N_CHAN
+          and len(line["runs_ms"]) == 5 and line["value"] > 0,
+          f"the bench's line is not the demod_throughput line: {line}")
+    return res, launches, t_bench
+
+
+def bench_phase(card: str, bench_run: tuple) -> dict[str, int]:
+    """The bench run's checks: one dispatch counted alone; its frames ==
+    the CPU run and >= 90% of the truth; graft_entry.entry() == its CPU
+    run, counted from 0; the four tools at reduced sizes.  Returns the
+    bench run's launches."""
+    res, launches, t_bench = bench_run
+    reset_counts()
+    res["dispatch"]()
+    torch.cuda.synchronize()
+    one = read_counts()
+    check(one == {**{n: 0 for n in WRAPPERS}, "dense_scan_uc8": 1, "extract_syndromes": 1},
+          f"one bench dispatch launched {one}")
+
+    t0 = time.perf_counter()
+    cpu = pipeline.MultiDemodulator(N_CHAN, blocks_per_batch=1, device="cpu")
+    want = cpu.feed(res["chunks"])
+    for c in range(N_CHAN):
+        check(frame_key(res["frames"][c]) == frame_key(want[c]),
+              f"bench channel {c}: card frames differ from the CPU run")
+    frames = [f for fr in res["frames"] for f in fr]
+    rec, tot = recovered(res["truth"], frames)
+    check(rec >= 0.9 * tot, f"the bench decoded only {rec}/{tot} truth messages")
+    log(f"bench: {t_bench:.1f} s (workload, build, warm feed, 5 x 10 timed dispatches, a feed) "
+        f"launching only #1 and #2 ({launches['dense_scan_uc8']} each), one dispatch counted "
+        f"alone = one of each; {len(frames)} frames == the CPU run per channel (CPU "
+        f"{time.perf_counter() - t0:.1f} s), truth recovered {rec}/{tot}, on {card}")
+
+    fn, args = graft_entry.entry()
+    reset_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = read_counts()
+    check_launched(entry_launches, ("dense_scan", "extract_syndromes"), "graft_entry.entry()")
+    cfn, cargs = graft_entry.entry("cpu")
+    same_fields(got, cfn(*cargs), "graft_entry.entry()")
+    log(f"graft_entry.entry(): every field == its CPU run; launches {entry_launches}; "
+        f"n_cand {got.n_cand.tolist()} at k=256")
+
+    for mod, argv in BENCH_TOOLS:
+        name = mod.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        _, out = captured(mod.main, argv)
+        for text in out.strip().splitlines():
+            log(f"{name}: {text}")
+        tool_line = bench_line(out, name)
+        log(f"{name} {' '.join(argv)}: {tool_line['metric']} = {tool_line['value']:.6g} "
+            f"{tool_line['unit']} in {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
-    card = card_line()
+    card = port_tools.card_line(DEV)
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # --- build ----------------------------------------------------------------
@@ -2002,7 +2110,9 @@ def main() -> None:
 
     # --- workload -------------------------------------------------------------
     t0 = time.perf_counter()
-    raw, raw16, truth = workload(N_CHAN * DISPATCHES)
+    iq, truth = bench.render_workload(N_CHAN * DISPATCHES)
+    raw, raw16 = quantize_uc8(iq), quantize_sc16(iq).view(np.uint8)
+    del iq
     per_chan = DISPATCHES * BLOCK_SAMPLES * 2
     chunks = [bytes(raw[c * per_chan : (c + 1) * per_chan]) for c in range(N_CHAN)]
     chunks16 = [bytes(raw16[2 * c * per_chan : 2 * (c + 1) * per_chan]) for c in range(N_CHAN)]
@@ -2402,17 +2512,12 @@ def main() -> None:
         f"extract_syndromes {dev_densem + dev_ex:.4f} ms of the stages it replaces (their "
         f"torch stages not counted) on {card}")
 
-    # --- end to end -----------------------------------------------------------
-    def dispatch():
-        return pipeline._demod_and_gate_multi_raw(
-            words, overlap, multi.seg_valid, thr, multi.mirror.tbl,
-            k=multi.k, scan_len=multi.scan_len, l=multi.compact_l, k2=multi.gate_k2,
-            nfix=multi.nfix, fix_df=multi.fix_df, reset_every=multi.block_samples,
-            seg_stride=multi.seg_stride, seg_valid=multi.seg_valid,
-            keep_l=multi.gate_keep_l,
-        )
-
-    ms_dispatch = time_ms(dispatch, reps=10)
+    # --- end to end: readsb_tpu_torch.bench at full width, counted from 0 ---------
+    # its demod_throughput line is the staged dispatch's reading; the same
+    # dispatch is then timed by the same instrument under each constant
+    bench_run = run_bench()
+    dispatch = bench_run[0]["dispatch"]
+    runs_dispatch = bench_run[0]["line"]["runs_ms"]
     wall, busy, rows = profile_dispatch(dispatch)
     log(f"profile of one dispatch: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({busy / wall * 100:.1f}%), {sum(r[1] for r in rows)} device launches; top:")
@@ -2421,27 +2526,29 @@ def main() -> None:
     # the same dispatch under each constant, beside the staged one
     pipeline.FUSE_CLASSIFY = True
     try:
-        ms_dispatch_fc = time_ms(dispatch, reps=10)
+        runs_dispatch_fc = bench.time_dispatch(dispatch)
         wall_fc, busy_fc, rows_fc = profile_dispatch(dispatch)
     finally:
         pipeline.FUSE_CLASSIFY = False
     demod_ops.USE_FUSED = True
     try:
         check(int(dispatch().fused_overflow) <= 0, "the fused dispatch overflowed")
-        ms_dispatch_fu = time_ms(dispatch, reps=10)
+        runs_dispatch_fu = bench.time_dispatch(dispatch)
         wall_fu, busy_fu, rows_fu = profile_dispatch(dispatch)
     finally:
         demod_ops.USE_FUSED = False
-    ms_dispatch_again = time_ms(dispatch, reps=10)
-    for what, ms_d, wall_d, busy_d, rows_d in (
-        ("staged", ms_dispatch, wall, busy, rows),
-        ("FUSE_CLASSIFY", ms_dispatch_fc, wall_fc, busy_fc, rows_fc),
-        ("USE_FUSED", ms_dispatch_fu, wall_fu, busy_fu, rows_fu),
+    runs_dispatch_again = bench.time_dispatch(dispatch)
+    for what, runs_d, wall_d, busy_d, rows_d in (
+        ("staged", runs_dispatch, wall, busy, rows),
+        ("FUSE_CLASSIFY", runs_dispatch_fc, wall_fc, busy_fc, rows_fc),
+        ("USE_FUSED", runs_dispatch_fu, wall_fu, busy_fu, rows_fu),
+        ("staged, again after the two", runs_dispatch_again, None, None, None),
     ):
-        log(f"dispatch {what}: {ms_d:.3f} ms by events (median of 10); under the profiler "
-            f"wall {wall_d:.3f} ms, device busy {busy_d:.3f} ms ({busy_d / wall_d * 100:.1f}%), "
-            f"{sum(r[1] for r in rows_d)} device launches on {card}")
-    log(f"dispatch staged, timed again after the two: {ms_dispatch_again:.3f} ms")
+        prof = "" if rows_d is None else (
+            f"; under the profiler wall {wall_d:.3f} ms, device busy {busy_d:.3f} ms "
+            f"({busy_d / wall_d * 100:.1f}%), {sum(r[1] for r in rows_d)} device launches")
+        log(f"dispatch {what}: {statistics.median(runs_d):.3f} ms by events ({min(runs_d):.3f}-"
+            f"{max(runs_d):.3f}; bench.time_dispatch, 5 runs of 10 back to back){prof} on {card}")
     log("profile of one USE_FUSED dispatch, top:")
     for ms, cnt, name in rows_fu[:8]:
         log(f"  {ms:8.4f} ms  x{cnt:<4d} {name[:90]}")
@@ -2458,8 +2565,6 @@ def main() -> None:
         torch.cuda.synchronize()
         feeds.append(time.perf_counter() - t0)
     t_feed = statistics.median(feeds)
-    log(f"one dispatch (device, pre-staged words): {ms_dispatch:.3f} ms = "
-        f"{samples / ms_dispatch / 1e3:.1f} MS/s aggregate on {card}")
     log(f"feed() of {DISPATCHES} superblocks (upload, dispatch, readback, host "
         f"finalize): {t_feed * 1e3:.1f} ms = {DISPATCHES * samples / t_feed / 1e6:.1f} MS/s "
         f"aggregate (median of 3) on {card}")
@@ -2474,7 +2579,7 @@ def main() -> None:
             keep_l=multi16.gate_keep_l,
         )
 
-    ms_dispatch16 = time_ms(dispatch16, reps=10)
+    ms_dispatch16 = statistics.median(bench.time_dispatch(dispatch16))
     ms_tomag16 = time_ms(lambda: pipeline._to_mag(first16.reshape(-1), "sc16", DEV), reps=5)
 
     def make16():
@@ -2527,6 +2632,9 @@ def main() -> None:
 
     # --- the sharded mesh on the card: dry run, 64 channels, two processes ----------
     mesh_dryrun_launches, mesh_launches = mesh_phase(card)
+
+    # --- the measurement and compile-check entry points: bench, graft_entry, tools ----------
+    bench_launches = bench_phase(card, bench_run)
 
     entries = [
         {
@@ -2596,14 +2704,16 @@ def main() -> None:
     for entry in entries:
         # the launches of the app phase's three counted routes, of the
         # network phase's feeder, of the SDR phase's three routes, of the
-        # history phase's --ifile App, of the mesh phase's dry run (a) and
-        # of its 64-channel conversion and step (b)
+        # history phase's --ifile App, of the mesh phase's dry run (a), of
+        # its 64-channel conversion and step (b) and of the bench phase's
+        # readsb_tpu_torch.bench run
         entry["app_launches"] = app_launches[entry["name"]]
         entry["net_launches"] = net_launches[entry["name"]]
         entry["sdr_launches"] = sdr_launches[entry["name"]]
         entry["history_launches"] = history_launches[entry["name"]]
         entry["mesh_dryrun_launches"] = mesh_dryrun_launches[entry["name"]]
         entry["mesh_launches"] = mesh_launches[entry["name"]]
+        entry["bench_launches"] = bench_launches[entry["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -849,3 +849,59 @@ def test_mesh_over_two_cards_equals_one_card(dev):
         b = build(pmesh.make_mesh(2, 4, one))
         for f in a._fields:
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f
+
+
+def _wrapper_counts() -> dict:
+    wrappers = {n: getattr(kernels, n) for n in ("dense_scan_uc8", "extract_syndromes", "mag_uc8",
+                                                 "dense_scan", "extract_classify_v3",
+                                                 "extract_classify")}
+    wrappers["fused_demod"] = fused.fused_demod_tiles
+    return {n: w.launches for n, w in wrappers.items()}
+
+
+def test_graft_entry_on_the_card_equals_the_cpu(dev):
+    """entry()'s step on the card equals its CPU run in every field, and
+    launches #4 and #2 once per block and no other kernel."""
+    from readsb_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert args[0].is_cuda
+    before = _wrapper_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    after = _wrapper_counts()
+    launched = {n: after[n] - before[n] for n in after if after[n] > before[n]}
+    assert launched == {"dense_scan": 4, "extract_syndromes": 4}
+    cfn, cargs = graft_entry.entry(device="cpu")
+    want = cfn(*cargs)
+    for f in want._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert (g is None) == (w is None), f
+        assert w is None or (g.is_cuda and torch.equal(g.cpu(), w)), f
+
+
+def test_bench_dispatch_on_the_card_equals_the_cpu(dev):
+    """One dispatch of the bench (4 channels) on the card equals the same
+    dispatch on the CPU in every field and launches #1 and #2 once each."""
+    from readsb_tpu_torch import bench
+
+    raw, _, _ = bench.build_workload(4)
+    chunks = [bytes(raw[c * 262144 : (c + 1) * 262144]) for c in range(4)]
+    outs = {}
+    for device in ("cpu", dev):
+        multi = MultiDemodulator(4, blocks_per_batch=1, device=device)
+        multi.feed(chunks)
+        words = torch.from_numpy(raw.view("<u2").reshape(4, -1).copy()).to(device)
+        dispatch = bench.make_dispatch(multi, words)
+        before = _wrapper_counts()
+        outs[device] = dispatch()
+        after = _wrapper_counts()
+    torch.cuda.synchronize()
+    assert {n: after[n] - before[n] for n in after if after[n] > before[n]} == {
+        "dense_scan_uc8": 1, "extract_syndromes": 1}
+    got, want = outs[dev], outs["cpu"]
+    assert int(want.n_keep) > 0
+    for f in want._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert (g is None) == (w is None), f
+        assert w is None or (g.is_cuda and torch.equal(g.cpu(), w)), f
