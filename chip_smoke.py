@@ -119,6 +119,19 @@ and then the repo's measurement and compile-check entry points, in process:
                    10,000 aircraft, state 100,000 aircraft), each JSON
                    line parsed
 
+and then the packaging (packaging/):
+
+  packaging        the systemd unit's ExecStart (readsb-tpu-torch.service)
+                   with the $GROUPs of readsb-tpu-torch.default, as its
+                   first start runs it: a child process on the card with
+                   a fresh, empty READSB_TPU_TORCH_BUILD_DIR, fed one uc8
+                   receiver of the network phase's scene (1.0 s) on
+                   stdin; it exits 0, builds the seven kernels and the
+                   finalizer into that directory and changes no library
+                   beside the repo, and its aircraft.json equals an
+                   in-process card App's over the same capture with the
+                   same options; its build and wall seconds
+
 It holds every kernel against its plain PyTorch version on the card at
 the shapes these paths give it, holds the card's frames, stats, levels
 and Mode A/C messages against the port's own CPU run (the two new paths
@@ -140,6 +153,7 @@ import json
 import multiprocessing
 import os
 import re
+import shlex
 import statistics
 import subprocess
 import sys
@@ -2089,6 +2103,118 @@ def bench_phase(card: str, bench_run: tuple) -> dict[str, int]:
     return launches
 
 
+# the packaging phase: packaging/readsb-tpu-torch.service's first start on
+# the card, its ExecStart with the $GROUPs of its defaults file, fed one
+# uc8 receiver of the network phase's scene on stdin
+ROOT = os.path.dirname(os.path.abspath(__file__))
+UNIT = os.path.join(ROOT, "packaging", "readsb-tpu-torch.service")
+UNIT_DEFAULTS = os.path.join(ROOT, "packaging", "readsb-tpu-torch.default")
+UNIT_TIMEOUT_S = 600  # the child's limit, its build of eight libraries included
+
+
+def unit_command() -> list[str]:
+    """The unit's ExecStart with each $GROUP of its defaults file split on
+    whitespace, as systemd expands an unbraced $VAR."""
+    groups = {}
+    for line in open(UNIT_DEFAULTS):
+        line = line.strip()
+        if line and not line.startswith("#"):
+            key, value = shlex.split(line)[0].split("=", 1)
+            groups[key] = value
+    exec_start = next(line.strip().split("=", 1)[1] for line in open(UNIT)
+                      if line.startswith("ExecStart="))
+    argv = []
+    for word in shlex.split(exec_start):
+        argv += groups[word[1:]].split() if word.startswith("$") else [word]
+    return argv
+
+
+def lib_mtimes(d: str) -> dict[str, float]:
+    if not os.path.isdir(d):
+        return {}
+    return {f: os.path.getmtime(os.path.join(d, f)) for f in os.listdir(d)}
+
+
+def packaging_phase(card: str) -> dict[str, int]:
+    """The unit's command line in a child process, as systemd first starts
+    it: a fresh READSB_TPU_TORCH_BUILD_DIR, this interpreter for
+    /usr/bin/python3, --write-json and the listeners moved to a temporary
+    directory and free ports.  It exits 0, builds the seven kernels and the
+    finalizer into that directory and nothing beside the repo, and its
+    aircraft.json equals an in-process card App's over the same capture
+    with the same options.  Returns that App's kernel launches."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_unit_")
+    d = tmp.name
+    capture = os.path.join(d, "net0.uc8.dat")
+    scene = set(write_capture((capture, "uc8", NET_S, 700, 0x600000)))
+    build_dir, out, cwd = (os.path.join(d, x) for x in ("cache", "json", "cwd"))
+    os.makedirs(build_dir)
+    os.makedirs(cwd)
+    argv = unit_command()
+    check(argv[:3] == ["/usr/bin/python3", "-m", "readsb_tpu_torch.app.main"]
+          and argv.count("/dev/stdin") == 1, f"the unit runs {argv}")
+    argv[0] = sys.executable
+    port_opts = [i for i, w in enumerate(argv[:-1]) if w.startswith("--net-") and w.endswith("-port")]
+    # an SBS port ending in 5 listens on the next four too: give it five
+    port = free_port_block(sum(len(argv[i + 1].split(",")) for i in port_opts) + 4)
+    for i in port_opts:
+        ports = []
+        for _ in argv[i + 1].split(","):
+            ports.append(str(port))
+            port += 5 if argv[i] == "--net-sbs-port" else 1
+        argv[i + 1] = ",".join(ports)
+    argv[argv.index("--write-json") + 1] = out
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("READSB_TPU_PLATFORM", "READSB_TPU_TORCH_BUILD_DIR")}
+    env.update(READSB_TPU_TORCH_BUILD_DIR=build_dir, PYTHONPATH=ROOT)
+    repo_build = os.path.join(ROOT, "build", "readsb_tpu_torch")
+    before = {p: lib_mtimes(p) for p in {repo_build, BUILD_DIR}}
+
+    log(f"packaging: the unit's command line as run: {' '.join(argv[1:])} < one uc8 receiver "
+        f"of {NET_S} s, cwd and READSB_TPU_TORCH_BUILD_DIR fresh temporary directories")
+    t_start = time.time()
+    with open(capture, "rb") as stdin:
+        r = subprocess.run(argv, cwd=cwd, env=env, stdin=stdin, capture_output=True, text=True,
+                           timeout=UNIT_TIMEOUT_S)
+    wall = time.time() - t_start
+    check(r.returncode == 0, f"the unit's command line exited {r.returncode} in {wall:.1f} s: "
+                             f"{r.stderr[-1500:]}")
+    got = json.load(open(os.path.join(out, "aircraft.json")))
+    built = lib_mtimes(build_dir)
+    want_libs = {f"lib{name}.so" for name in kernels.SOURCES} | {"libfinalizer.so"}
+    check(set(built) == want_libs, f"the unit's build directory holds {sorted(built)}")
+    t_fin = built.pop("libfinalizer.so") - t_start
+    t_kern = max(built.values()) - t_start
+    check({p: lib_mtimes(p) for p in before} == before,
+          "the unit's first start changed a library beside the repo")
+
+    opts = argv[3:]
+    opts[opts.index("/dev/stdin")] = capture
+    app = make_app(opts, "cuda")
+    reset_counts()
+    t_app = run_app(app)
+    launches = read_counts()
+    check_launched(launches, APP_ROUTES["multi"], "the packaging phase's in-process App")
+    want = json_out.generate_aircraft_json(app.tracker, app.now_ms(), app.messages)
+    got.pop("now")
+    want.pop("now")
+    check(got == want, f"the unit's aircraft.json differs from the in-process card App's at "
+                       f"{first_diff(got, want)}")
+    hexes = {a["hex"] for a in got["aircraft"]}
+    check(scene <= hexes and len(with_positions(got)) >= 5,
+          f"the unit's aircraft.json: {len(scene - hexes)} scene aircraft missing, "
+          f"{len(with_positions(got))} with positions")
+    log(f"packaging: exit 0, wall {wall:.1f} s; its first start built the {len(want_libs)} "
+        f"libraries into the fresh directory: the finalizer in place {t_fin:.1f} s and the last "
+        f"of the {len(built)} kernels {t_kern:.1f} s after the child started (the kernels "
+        f"{t_kern - t_fin:.1f} s after the finalizer); no library beside the repo changed; "
+        f"aircraft.json ({len(got['aircraft'])} aircraft, {len(with_positions(got))} with "
+        f"positions) == the in-process card App's ({t_app:.2f} s, launches {launches}) apart "
+        f"from now, on {card}")
+    tmp.cleanup()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2636,6 +2762,9 @@ def main() -> None:
     # --- the measurement and compile-check entry points: bench, graft_entry, tools ----------
     bench_launches = bench_phase(card, bench_run)
 
+    # --- the packaging: the systemd unit's first start on the card -------------------
+    packaging_launches = packaging_phase(card)
+
     entries = [
         {
             "name": "dense_scan_uc8", "route": "cuda",
@@ -2705,8 +2834,8 @@ def main() -> None:
         # the launches of the app phase's three counted routes, of the
         # network phase's feeder, of the SDR phase's three routes, of the
         # history phase's --ifile App, of the mesh phase's dry run (a), of
-        # its 64-channel conversion and step (b) and of the bench phase's
-        # readsb_tpu_torch.bench run
+        # its 64-channel conversion and step (b), of the bench phase's
+        # readsb_tpu_torch.bench run and of the packaging phase's in-process App
         entry["app_launches"] = app_launches[entry["name"]]
         entry["net_launches"] = net_launches[entry["name"]]
         entry["sdr_launches"] = sdr_launches[entry["name"]]
@@ -2714,6 +2843,7 @@ def main() -> None:
         entry["mesh_dryrun_launches"] = mesh_dryrun_launches[entry["name"]]
         entry["mesh_launches"] = mesh_launches[entry["name"]]
         entry["bench_launches"] = bench_launches[entry["name"]]
+        entry["packaging_launches"] = packaging_launches[entry["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
