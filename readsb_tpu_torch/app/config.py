@@ -118,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metric", action="store_true",
                    help="interactive display in metric units")
     p.add_argument("--write-profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the replay to DIR/trace.json")
+                   help="write a torch.profiler trace of the --ifile replay (one file or "
+                        "several) with the program's spans to DIR/trace.json")
     p.add_argument("--debug", default="", metavar="FLAGS",
                    help="debug flag string (subset: C=CPR, n=net, S=speed)")
 

@@ -38,6 +38,7 @@ and `main` refuses to start without one.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import os
 import sys
@@ -45,7 +46,7 @@ import time
 
 import torch
 
-from .. import constants
+from .. import constants, spans
 from ..decode.fields import AddrType, ModesMessage, Source, decode_frame
 from ..io import beast as beast_io
 from ..io import json_out
@@ -349,6 +350,35 @@ class App:
         with torch.cuda.device(dev):
             return fn(*args)
 
+    @contextlib.contextmanager
+    def _profiled(self, device: torch.device):
+        """--write-profile DIR: torch.profiler over the replay (host ops, and
+        the card's work on a card) with the program's spans recorded while
+        it ran, written to DIR/trace.json at its end; spans past
+        spans.CAPACITY are counted there and logged."""
+        out = self.args.write_profile
+        if not out:
+            yield
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        try:
+            yield
+        finally:
+            prof.stop()
+            recorded, dropped = spans.recorded(), spans.dropped()
+            os.makedirs(out, exist_ok=True)
+            path = os.path.join(out, "trace.json")
+            prof.export_chrome_trace(path)
+            spans.add_to_chrome_trace(path, recorded, dropped)
+            if dropped:
+                log.warning("--write-profile: %d program spans past the first %d were "
+                            "dropped; those in %s cover the replay's start only", dropped,
+                            spans.CAPACITY, path)
+
     async def run_ifile(self) -> None:
         from ..pipeline import Demodulator
 
@@ -368,45 +398,34 @@ class App:
             device=self._demod_device(),
         )
         self._demod = demod
-        prof = None
-        if args.write_profile:
-            # device-op level tracing of the replay, written at its end
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if demod.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.start()
         f = sys.stdin.buffer if args.ifile == "-" else open(args.ifile, "rb")
         bps = 2 if args.iformat == "uc8" else 4
         chunk = demod.super_samples * bps
         loop = asyncio.get_event_loop()
-        try:
-            while True:
-                t0 = time.perf_counter()
-                data = await loop.run_in_executor(None, f.read, chunk)
-                self.stats_collector.cpu["reader"] += (time.perf_counter() - t0) * 1e3
-                if not data:
-                    break
-                t0 = time.perf_counter()
-                frames = await loop.run_in_executor(None, self._on_device, demod.feed, data)
-                self.stats_collector.cpu["demod"] += (time.perf_counter() - t0) * 1e3
-                for fr in frames:
+        with self._profiled(demod.device):
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    data = await loop.run_in_executor(None, f.read, chunk)
+                    self.stats_collector.cpu["reader"] += (time.perf_counter() - t0) * 1e3
+                    if not data:
+                        break
+                    t0 = time.perf_counter()
+                    frames = await loop.run_in_executor(None, self._on_device, demod.feed, data)
+                    self.stats_collector.cpu["demod"] += (time.perf_counter() - t0) * 1e3
+                    for fr in frames:
+                        self.handle_frame(fr)
+                    self._drain_modeac(demod)
+                    if args.throttle:
+                        await asyncio.sleep(len(data) / bps / constants.SAMPLE_RATE)
+                    else:
+                        await asyncio.sleep(0)
+                for fr in self._on_device(demod.flush):
                     self.handle_frame(fr)
                 self._drain_modeac(demod)
-                if args.throttle:
-                    await asyncio.sleep(len(data) / bps / constants.SAMPLE_RATE)
-                else:
-                    await asyncio.sleep(0)
-            for fr in self._on_device(demod.flush):
-                self.handle_frame(fr)
-            self._drain_modeac(demod)
-        finally:
-            if prof is not None:
-                prof.stop()
-                os.makedirs(args.write_profile, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(args.write_profile, "trace.json"))
-            if f is not sys.stdin.buffer:
-                f.close()
+            finally:
+                if f is not sys.stdin.buffer:
+                    f.close()
 
     async def run_ifile_multi(self, paths: list[str]) -> None:
         """Channel-batched replay: one IQ file per virtual receiver
@@ -445,29 +464,30 @@ class App:
                         mm, raw_ts=fr.timestamp, signal=fr.signal_power
                     )
 
-        try:
-            while True:
-                t0 = time.perf_counter()
-                datas = await loop.run_in_executor(None, read_all)
-                self.stats_collector.cpu["reader"] += (time.perf_counter() - t0) * 1e3
-                if not any(datas):
-                    break
-                if not all(datas):
-                    break  # lockstep streams; ragged tails flush below
-                t0 = time.perf_counter()
-                per_chan = await loop.run_in_executor(
-                    None, self._on_device, multi.feed, list(datas)
-                )
-                self.stats_collector.cpu["demod"] += (time.perf_counter() - t0) * 1e3
-                emit(per_chan)
-                if args.throttle:
-                    await asyncio.sleep(len(datas[0]) / bps / constants.SAMPLE_RATE)
-                else:
-                    await asyncio.sleep(0)
-            emit(self._on_device(multi.flush))
-        finally:
-            for f in files:
-                f.close()
+        with self._profiled(multi.device):
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    datas = await loop.run_in_executor(None, read_all)
+                    self.stats_collector.cpu["reader"] += (time.perf_counter() - t0) * 1e3
+                    if not any(datas):
+                        break
+                    if not all(datas):
+                        break  # lockstep streams; ragged tails flush below
+                    t0 = time.perf_counter()
+                    per_chan = await loop.run_in_executor(
+                        None, self._on_device, multi.feed, list(datas)
+                    )
+                    self.stats_collector.cpu["demod"] += (time.perf_counter() - t0) * 1e3
+                    emit(per_chan)
+                    if args.throttle:
+                        await asyncio.sleep(len(datas[0]) / bps / constants.SAMPLE_RATE)
+                    else:
+                        await asyncio.sleep(0)
+                emit(self._on_device(multi.flush))
+            finally:
+                for f in files:
+                    f.close()
 
     async def run_rtlsdr(self) -> None:
         """Live rtl-sdr capture: reader thread fills UC8 buffers, the

@@ -40,6 +40,8 @@ device is missing.  device="cpu" runs the kernels' plain versions.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -51,6 +53,7 @@ from .ops import demod as demod_ops
 from .ops import kernels
 from .ops import modeac as modeac_ops
 from .ops.gate import DeviceIcaoMirror, score_gate, skipped_drops
+from .spans import span
 
 # uc8: one I byte and one Q byte; sc16 / sc16q11: little-endian int16 each
 BYTES_PER_SAMPLE = {"uc8": 2, "sc16": 4, "sc16q11": 4}
@@ -95,20 +98,34 @@ def _load_native(use_native: bool | None):
     return native_mod
 
 
+def _upload(raw: np.ndarray, dtype: str, shape, device: torch.device) -> torch.Tensor:
+    """uint8 bytes viewed as `dtype` in `shape`, copied to the device."""
+    with span("upload.copy"):
+        a = np.ascontiguousarray(raw).view(dtype).reshape(shape).copy()
+    with span("upload.h2d"):
+        out = torch.from_numpy(a).to(device)
+    with span("upload.free"):
+        del a  # the host copy's pages go back here, not in a parent's own time
+    return out
+
+
 def _words_from_bytes(raw: np.ndarray, shape, device: torch.device) -> torch.Tensor:
     """uint8 I/Q bytes -> uint16 words (I in the low byte) on the device."""
-    w = np.ascontiguousarray(raw).view("<u2").reshape(shape)
-    return torch.from_numpy(w.copy()).to(device)
+    with span("upload"):
+        return _upload(raw, "<u2", shape, device)
 
 
-def _to_mag(raw: np.ndarray, fmt: str, device: torch.device) -> torch.Tensor:
-    """uint8 IQ bytes of any format -> uint16 magnitudes on the device."""
-    if fmt == "uc8":
-        return kernels.mag_uc8(_words_from_bytes(raw, (-1,), device))
-    iq16 = torch.from_numpy(np.ascontiguousarray(raw).view("<i2").copy()).to(device)
-    if fmt == "sc16":
-        return convert_ops.mag_sc16(iq16)
-    return convert_ops.mag_sc16q11(iq16)
+def _to_mag(raw: np.ndarray, fmt: str, device: torch.device, sb: int = -1) -> torch.Tensor:
+    """uint8 IQ bytes of any format -> uint16 magnitudes on the device; `sb`
+    names the superblock of an upload made ahead of it."""
+    with span("upload", sb=sb):
+        src = _upload(raw, "<u2" if fmt == "uc8" else "<i2", (-1,), device)
+        with span("upload.convert"):
+            if fmt == "uc8":
+                return kernels.mag_uc8(src)
+            if fmt == "sc16":
+                return convert_ops.mag_sc16(src)
+            return convert_ops.mag_sc16q11(src)
 
 
 def _sigsum(a: np.ndarray) -> np.ndarray:
@@ -121,16 +138,22 @@ def _fit_or_grow(d, gc) -> int | None:
     double the capacities that overflowed and return None (the caller
     redoes the dispatch).  A fused dispatch that overflowed its per-tile or
     per-row capacity makes d staged for good and is redone too: those
-    capacities are fixed.  One device sync."""
+    capacities are fixed.  One device sync.  Counts the candidates and kept
+    rows of a dispatch that fit, and each dispatch to redo, on d."""
     counts = [gc.n_cand, gc.max_local, gc.n_keep, gc.keep_watermark]
     if gc.fused_overflow is not None:
         counts.append(gc.fused_overflow)
-    n, max_local, n_keep, kw, *overflow = torch.stack(counts).tolist()
+    with span("sync"):
+        n, max_local, n_keep, kw, *overflow = torch.stack(counts).tolist()
     if overflow and overflow[0] > 0:
         d._force_staged = True
+        d.redispatches += 1
         return None
     if n <= d.k and max_local <= d.compact_l and n_keep <= d.gate_k2 and kw <= d.gate_keep_l:
+        d.candidates += n
+        d.kept += n_keep
         return n_keep
+    d.redispatches += 1
     while d.k < n:
         d.k *= 2
     while d.compact_l < max_local:
@@ -143,7 +166,25 @@ def _fit_or_grow(d, gc) -> int | None:
 
 
 def _fetch(gc, names: tuple[str, ...]) -> list[np.ndarray]:
-    return [getattr(gc, n).cpu().numpy() for n in names]
+    with span("fetch"):
+        return [getattr(gc, n).cpu().numpy() for n in names]
+
+
+def _superblock(method):
+    """Runs `method` as its demodulator's next superblock: in a span that
+    notes what the counters gained inside it, and counted once it returns."""
+
+    @functools.wraps(method)
+    def run(d, *args):
+        before = d.candidates, d.kept, d.redispatches
+        with span("superblock", sb=d.superblocks) as sp:
+            out = method(d, *args)
+            sp.note(candidates=d.candidates - before[0], kept=d.kept - before[1],
+                    redispatches=d.redispatches - before[2])
+        d.superblocks += 1
+        return out
+
+    return run
 
 
 def _demod_and_gate_raw(
@@ -320,6 +361,9 @@ class Demodulator:
         self._gate_drops = [0, 0, 0]  # preambles, rejected_unknown, rejected_bad
         # set for good by the first fused dispatch that overflows (USE_FUSED)
         self._force_staged = False
+        # always on: superblocks, the scan's candidates on each dispatch that
+        # fit, the rows kept and read back, dispatches redone on overflow
+        self.superblocks = self.candidates = self.kept = self.redispatches = 0
         self.icao_mirror = DeviceIcaoMirror(device=self.device)
         self._overlap_words = torch.full(
             (TRAILING_SAMPLES,), SILENT_WORD, dtype=torch.uint16, device=self.device
@@ -347,26 +391,31 @@ class Demodulator:
         still follows the previous finalize, so the ICAO gate table is
         exact.
         """
-        super_bytes = self.super_samples * BYTES_PER_SAMPLE[self.fmt]
-        data = self._pending + raw
-        chunks = []
-        off = 0
-        while len(data) - off >= super_bytes:
-            chunks.append(np.frombuffer(data, dtype=np.uint8, count=super_bytes, offset=off))
-            off += super_bytes
-        self._pending = data[off:]
-        frames: list[RawFrame] = []
-        if len(chunks) > 1 and self.use_gate and not self.modeac and not self.raw_route:
-            next_mag = _to_mag(chunks[0], self.fmt, self.device)
-            for i in range(len(chunks)):
-                mag = next_mag
-                if i + 1 < len(chunks):
-                    next_mag = _to_mag(chunks[i + 1], self.fmt, self.device)  # prefetch
-                frames.extend(self._demod_mag_gated(mag, self.super_samples))
+        with span("feed"):
+            super_bytes = self.super_samples * BYTES_PER_SAMPLE[self.fmt]
+            with span("stage", sb=self.superblocks):
+                data = self._pending + raw
+                chunks = []
+                off = 0
+                while len(data) - off >= super_bytes:
+                    chunks.append(np.frombuffer(data, dtype=np.uint8, count=super_bytes,
+                                                offset=off))
+                    off += super_bytes
+                self._pending = data[off:]
+            frames: list[RawFrame] = []
+            if len(chunks) > 1 and self.use_gate and not self.modeac and not self.raw_route:
+                # each upload is made ahead of its superblock, in feed's span
+                sb = self.superblocks
+                next_mag = _to_mag(chunks[0], self.fmt, self.device, sb)
+                for i in range(len(chunks)):
+                    mag = next_mag
+                    if i + 1 < len(chunks):
+                        next_mag = _to_mag(chunks[i + 1], self.fmt, self.device, sb + i + 1)
+                    frames.extend(self._demod_mag_ahead(mag, self.super_samples))
+                return frames
+            for chunk in chunks:
+                frames.extend(self._process(chunk, self.super_samples))
             return frames
-        for chunk in chunks:
-            frames.extend(self._process(chunk, self.super_samples))
-        return frames
 
     def flush(self) -> list[RawFrame]:
         """Process the final partial superblock (EOF)."""
@@ -380,6 +429,7 @@ class Demodulator:
         self._pending = b""
         return self._process(chunk, n)
 
+    @_superblock
     def _process(self, chunk, valid_len: int) -> list[RawFrame]:
         """One superblock: uint8 bytes or, on the raw route, pre-staged
         uint16 words on the device."""
@@ -393,6 +443,7 @@ class Demodulator:
         self.mean_level, self.mean_power = convert_ops.block_stats(mag[:valid_len])
         return self._demod_buf(torch.cat([self._overlap_dev, mag]), valid_len)
 
+    @_superblock
     def process_mag(self, mag: np.ndarray) -> list[RawFrame]:
         """Feed a pre-converted magnitude superblock (super_samples long)."""
         if len(mag) != self.super_samples:
@@ -415,13 +466,14 @@ class Demodulator:
             raise ValueError(f"expected uint16[{self.super_samples}] words")
         mirror = self.icao_mirror
         while True:
-            gc = _demod_and_gate_raw(
-                words, self._overlap_words, valid_len, self.threshold, mirror.tbl,
-                k=self.k, scan_len=self.super_samples, l=self.compact_l,
-                k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
-                reset_every=self.block_samples, keep_l=self.gate_keep_l,
-                force_staged=self._force_staged,
-            )
+            with span("dispatch"):
+                gc = _demod_and_gate_raw(
+                    words, self._overlap_words, valid_len, self.threshold, mirror.tbl,
+                    k=self.k, scan_len=self.super_samples, l=self.compact_l,
+                    k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
+                    reset_every=self.block_samples, keep_l=self.gate_keep_l,
+                    force_staged=self._force_staged,
+                )
             n_keep = _fit_or_grow(self, gc)
             if n_keep is not None:
                 break
@@ -432,20 +484,25 @@ class Demodulator:
         """Gated magnitude route: demod + score gate in one dispatch; a small
         readback, and the block's level and power from exact integer sums."""
         while True:
-            gc, new_overlap, sums = _demod_and_gate(
-                mag, self._overlap_dev, valid_len, self.threshold, self.icao_mirror.tbl,
-                k=self.k, scan_len=self.super_samples, l=self.compact_l,
-                k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
-                reset_every=self.block_samples, keep_l=self.gate_keep_l,
-                force_staged=self._force_staged,
-            )
+            with span("dispatch"):
+                gc, new_overlap, sums = _demod_and_gate(
+                    mag, self._overlap_dev, valid_len, self.threshold,
+                    self.icao_mirror.tbl,
+                    k=self.k, scan_len=self.super_samples, l=self.compact_l,
+                    k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
+                    reset_every=self.block_samples, keep_l=self.gate_keep_l,
+                    force_staged=self._force_staged,
+                )
             n_keep = _fit_or_grow(self, gc)
             if n_keep is not None:
                 break
         self._overlap_dev = new_overlap
-        level, power = convert_ops.level_power(sums.cpu().numpy(), valid_len)
+        with span("fetch"):
+            level, power = convert_ops.level_power(sums.cpu().numpy(), valid_len)
         self.mean_level, self.mean_power = float(level), float(power)
         return _finalize_gated(self, gc, n_keep, valid_len)
+
+    _demod_mag_ahead = _superblock(_demod_mag_gated)  # the prefetching feed's superblocks
 
     def _demod_modeac(self, buf: torch.Tensor, valid_len: int) -> None:
         """Mode A/C pass over the same magnitude buffer (--modeac)."""
@@ -479,17 +536,25 @@ class Demodulator:
             self._demod_modeac(buf, valid_len)
         k = self.k
         while True:
-            cand = demod_ops.demod_block(
-                buf, self.threshold, k=k, scan_len=self.super_samples, l=self.compact_l,
-                force_staged=self._force_staged,
-            )
-            if cand.fused_overflow is not None and int(cand.fused_overflow) > 0:
+            with span("dispatch"):
+                cand = demod_ops.demod_block(
+                    buf, self.threshold, k=k, scan_len=self.super_samples,
+                    l=self.compact_l, force_staged=self._force_staged,
+                )
+            with span("sync"):
+                overflow = cand.fused_overflow is not None and int(cand.fused_overflow) > 0
+                if not overflow:
+                    n, max_local = torch.stack([cand.n_cand, cand.max_local]).tolist()
+            if overflow:
                 self._force_staged = True  # the fused capacities are fixed
+                self.redispatches += 1
                 continue
-            n, max_local = torch.stack([cand.n_cand, cand.max_local]).tolist()
             if n <= k and max_local <= self.compact_l:
+                self.candidates += n
+                self.kept += n  # every candidate is read back
                 break
             # capacity overflow: escalate and redo
+            self.redispatches += 1
             while k < n:
                 k *= 2
             self.k = k
@@ -507,10 +572,11 @@ class Demodulator:
             carry_skip=self._skip,
             reset_every=self.block_samples,
         )
-        if self.native is not None:
-            frames, leftover = self.native.finalize_block(*args, **kw)
-        else:
-            frames, leftover = finalize_block(self.scorer, *args, **kw)
+        with span("finalize"):
+            if self.native is not None:
+                frames, leftover = self.native.finalize_block(*args, **kw)
+            else:
+                frames, leftover = finalize_block(self.scorer, *args, **kw)
         self._skip = leftover if self.carry_skip else 0
 
         # advance stream state
@@ -519,10 +585,11 @@ class Demodulator:
 
         # ICAO filter generation aging on the synthetic clock
         now_ms = self.scan_global * 5 // 12000
-        if self.native is not None:
-            self.native.icao_expire(now_ms)
-        else:
-            self.scorer.icao.expire(now_ms)
+        with span("icao"):
+            if self.native is not None:
+                self.native.icao_expire(now_ms)
+            else:
+                self.scorer.icao.expire(now_ms)
         return frames
 
     def load_state(self, state: dict) -> None:
@@ -586,31 +653,34 @@ def _finalize_gated(self: Demodulator, gc, n_keep: int, valid_len: int) -> list[
         carry_skip=self._skip,
         reset_every=self.block_samples,
     )
-    if self.native is not None:
-        frames, leftover = self.native.finalize_block(*args, **kw)
-    else:
-        frames, leftover = finalize_block(self.scorer, *args, **kw)
+    with span("finalize"):
+        if self.native is not None:
+            frames, leftover = self.native.finalize_block(*args, **kw)
+        else:
+            frames, leftover = finalize_block(self.scorer, *args, **kw)
     self._skip = leftover if self.carry_skip else 0
 
     # drops inside NMS skip windows are never counted by the serial
     # finalizer; subtract them from the device totals (exact stats parity)
-    sk_u, sk_b = skipped_drops(
-        frames, offs, dcq, dcb,
-        block_scan_start=self.scan_global, reset_every=self.block_samples,
-    )
+    with span("drops"):
+        sk_u, sk_b = skipped_drops(
+            frames, offs, dcq, dcb,
+            block_scan_start=self.scan_global, reset_every=self.block_samples,
+        )
     self._gate_drops[0] += int(pre_d) - sk_u - sk_b
     self._gate_drops[1] += int(unk_d) - sk_u
     self._gate_drops[2] += int(bad_d) - sk_b
 
     self.scan_global += valid_len
     now_ms = self.scan_global * 5 // 12000
-    if self.native is not None:
-        self.native.icao_expire(now_ms)
-    else:
-        self.scorer.icao.expire(now_ms)
-    # keep the device table == host filter state for the NEXT superblock
-    self.icao_mirror.add_from_frames(frames)
-    self.icao_mirror.expire(now_ms)
+    with span("icao"):
+        if self.native is not None:
+            self.native.icao_expire(now_ms)
+        else:
+            self.scorer.icao.expire(now_ms)
+        # keep the device table == host filter state for the NEXT superblock
+        self.icao_mirror.add_from_frames(frames)
+        self.icao_mirror.expire(now_ms)
     return frames
 
 
@@ -671,6 +741,7 @@ class MultiDemodulator:
         self._pending = [b""] * n_chan
         self._gate_drops = [[0, 0, 0] for _ in range(n_chan)]
         self._force_staged = False  # as Demodulator's
+        self.superblocks = self.candidates = self.kept = self.redispatches = 0  # as Demodulator's
         self._overlap_words = torch.full(
             (n_chan, TRAILING_SAMPLES), SILENT_WORD, dtype=torch.uint16, device=self.device
         )
@@ -690,18 +761,22 @@ class MultiDemodulator:
         if len(raws) != self.n_chan:
             raise ValueError(f"expected {self.n_chan} channel chunks, got {len(raws)}")
         super_bytes = self.seg_valid * BYTES_PER_SAMPLE[self.fmt]
-        for c, r in enumerate(raws):
-            self._pending[c] = self._pending[c] + r if self._pending[c] else r
-        out: list[list[RawFrame]] = [[] for _ in range(self.n_chan)]
-        while min(len(p) for p in self._pending) >= super_bytes:
-            chunk = np.stack(
-                [np.frombuffer(p, dtype=np.uint8, count=super_bytes) for p in self._pending]
-            )
-            self._pending = [p[super_bytes:] for p in self._pending]
-            got = self._process(chunk, self.seg_valid)
-            for c in range(self.n_chan):
-                out[c].extend(got[c])
-        return out
+        with span("feed"):
+            with span("stage", sb=self.superblocks):
+                for c, r in enumerate(raws):
+                    self._pending[c] = self._pending[c] + r if self._pending[c] else r
+            out: list[list[RawFrame]] = [[] for _ in range(self.n_chan)]
+            while min(len(p) for p in self._pending) >= super_bytes:
+                with span("stage", sb=self.superblocks):
+                    chunk = np.stack([np.frombuffer(p, dtype=np.uint8, count=super_bytes)
+                                      for p in self._pending])
+                    self._pending = [p[super_bytes:] for p in self._pending]
+                got = self._process(chunk, self.seg_valid)
+                with span("stage", sb=self.superblocks - 1):
+                    del chunk  # the staged array's pages go back, counted as staging
+                for c in range(self.n_chan):
+                    out[c].extend(got[c])
+            return out
 
     def flush(self) -> list[list[RawFrame]]:
         """Process the final partial superblock (EOF, zero-padded).
@@ -721,6 +796,7 @@ class MultiDemodulator:
         self._pending = [b""] * self.n_chan
         return self._process(chunk, n)
 
+    @_superblock
     def _process(self, chunk, valid_len: int) -> list[list[RawFrame]]:
         """One superblock: uint8[C, bytes] IQ bytes or, on the raw route,
         PRE-STAGED uint16[C, S] words on the device (no per-dispatch IQ
@@ -740,14 +816,15 @@ class MultiDemodulator:
             samples = _to_mag(chunk.reshape(-1), self.fmt, self.device).reshape(shape)
             dispatch, overlaps = _demod_and_gate_multi, self._overlap_dev
         while True:
-            out = dispatch(
-                samples, overlaps, valid_len, self.threshold, self.mirror.tbl,
-                k=self.k, scan_len=self.scan_len, l=self.compact_l,
-                k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
-                reset_every=self.block_samples,
-                seg_stride=self.seg_stride, seg_valid=self.seg_valid,
-                keep_l=self.gate_keep_l, force_staged=self._force_staged,
-            )
+            with span("dispatch"):
+                out = dispatch(
+                    samples, overlaps, valid_len, self.threshold, self.mirror.tbl,
+                    k=self.k, scan_len=self.scan_len, l=self.compact_l,
+                    k2=self.gate_k2, nfix=self.nfix, fix_df=self.fix_df,
+                    reset_every=self.block_samples,
+                    seg_stride=self.seg_stride, seg_valid=self.seg_valid,
+                    keep_l=self.gate_keep_l, force_staged=self._force_staged,
+                )
             gc = out if self.raw_route else out[0]
             n_keep = _fit_or_grow(self, gc)
             if n_keep is not None:
@@ -756,19 +833,21 @@ class MultiDemodulator:
             self._overlap_words = samples[:, -TRAILING_SAMPLES:].clone()
         else:
             _, self._overlap_dev, sums = out
-            self.mean_level, self.mean_power = convert_ops.level_power(
-                sums.cpu().numpy(), valid_len
-            )
+            with span("fetch"):
+                self.mean_level, self.mean_power = convert_ops.level_power(
+                    sums.cpu().numpy(), valid_len
+                )
 
         (offs, cf, msgb, s112, s56, sl, ss, dcq, dcb, dcc) = _fetch(
             gc,
             ("offsets", "corr_fired", "msg", "syn112", "syn56", "sig_long",
              "sig_short", "drop_cum_q", "drop_cum_bnd", "drop_cum_chan"),
         )
-        nb_per_chan = dcb.shape[1] // self.n_chan
-        sl64 = _sigsum(sl)
-        ss64 = _sigsum(ss)
-        bounds = np.searchsorted(offs[:n_keep], np.arange(self.n_chan + 1) * self.seg_stride)
+        with span("fetch"):
+            nb_per_chan = dcb.shape[1] // self.n_chan
+            sl64 = _sigsum(sl)
+            ss64 = _sigsum(ss)
+            bounds = np.searchsorted(offs[:n_keep], np.arange(self.n_chan + 1) * self.seg_stride)
         results: list[list[RawFrame]] = []
         all_frames: list[RawFrame] = []
         for c in range(self.n_chan):
@@ -781,36 +860,39 @@ class MultiDemodulator:
                 reset_every=self.block_samples,
             )
             args = (loc, b - a, cf[a:b], msgb[a:b], s112[a:b], s56[a:b], sl64[a:b], ss64[a:b])
-            if self.native:
-                frames, _ = self.fins[c].finalize_block(*args, **kw)
-            else:
-                frames, _ = finalize_block(self.fins[c], *args, **kw)
+            with span("finalize", ch=c):
+                if self.native:
+                    frames, _ = self.fins[c].finalize_block(*args, **kw)
+                else:
+                    frames, _ = finalize_block(self.fins[c], *args, **kw)
             self._skips[c] = 0  # carry_skip off (the Demodulator default)
 
             # exact per-channel drop statistics (see _finalize_gated); the
             # dcq/dcb slices hold GLOBAL cumulative counts, which
             # skipped_drops only ever differences
-            dcb_c = dcb[:, c * nb_per_chan : (c + 1) * nb_per_chan]
-            sk_u, sk_b = skipped_drops(
-                frames, loc, dcq[:, :, a:b], dcb_c,
-                block_scan_start=self.scan_global, reset_every=self.block_samples,
-            )
-            gd = self._gate_drops[c]
-            gd[0] += int(dcc[0, c + 1] - dcc[0, c]) - sk_u - sk_b
-            gd[1] += int(dcc[1, c + 1] - dcc[1, c]) - sk_u
-            gd[2] += int(dcc[2, c + 1] - dcc[2, c]) - sk_b
+            with span("drops", ch=c):
+                dcb_c = dcb[:, c * nb_per_chan : (c + 1) * nb_per_chan]
+                sk_u, sk_b = skipped_drops(
+                    frames, loc, dcq[:, :, a:b], dcb_c,
+                    block_scan_start=self.scan_global, reset_every=self.block_samples,
+                )
+                gd = self._gate_drops[c]
+                gd[0] += int(dcc[0, c + 1] - dcc[0, c]) - sk_u - sk_b
+                gd[1] += int(dcc[1, c + 1] - dcc[1, c]) - sk_u
+                gd[2] += int(dcc[2, c + 1] - dcc[2, c]) - sk_b
             results.append(frames)
             all_frames.extend(frames)
 
         self.scan_global += valid_len
         now_ms = self.scan_global * 5 // 12000
-        for fin in self.fins:
-            if self.native:
-                fin.icao_expire(now_ms)
-            else:
-                fin.icao.expire(now_ms)
-        self.mirror.add_from_frames(all_frames)
-        self.mirror.expire(now_ms)
+        with span("icao"):
+            for fin in self.fins:
+                if self.native:
+                    fin.icao_expire(now_ms)
+                else:
+                    fin.icao.expire(now_ms)
+            self.mirror.add_from_frames(all_frames)
+            self.mirror.expire(now_ms)
         return results
 
     @property

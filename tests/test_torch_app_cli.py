@@ -16,6 +16,7 @@ import asyncio
 import contextlib
 import io
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ import torch
 from readsb_tpu.app import main as jax_main
 from readsb_tpu.app.config import build_parser as jax_build_parser
 from readsb_tpu.app.config import parse_args as jax_parse_args
+from readsb_tpu_torch import spans
 from readsb_tpu_torch.app import main
 from readsb_tpu_torch.app.config import build_parser
 from readsb_tpu_torch.synth import build_traffic_capture
@@ -96,6 +98,56 @@ def test_app_writes_every_json_file_and_a_profile(in_process):
     assert sum("lat" in a for a in acs) >= 4
     assert json.loads((d / "prof" / "trace.json").read_text())["traceEvents"]
     assert "readsb-tpu-torch statistics" in err and "messages total" in err
+
+
+def _profile_two_files(capture, tmp_path):
+    """The events of trace.json from --write-profile on a two-file replay
+    (one MultiDemodulator) on the CPU."""
+    second = str(tmp_path / "cap2.uc8.dat")
+    build_traffic_capture(0.6, 4, 62, addr_base=0x500000).write_uc8(second)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("READSB_TPU_PLATFORM", "cpu")
+    try:
+        args = main.parse_args(["--device-type", "ifile", "--ifile", f"{capture},{second}",
+                                "--blocks-per-batch", "1", "--write-profile",
+                                str(tmp_path / "prof")])
+        assert asyncio.run(main.App(args).amain()) == 0
+    finally:
+        mp.undo()
+    return json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+
+
+def test_the_profile_of_a_multi_receiver_replay_holds_the_program_spans(capture, tmp_path):
+    """--write-profile on two files: trace.json holds the program's feed,
+    superblock and finalize spans, on the time base of the profiler's own
+    events and inside their range, and says that none was dropped."""
+    events = _profile_two_files(capture, tmp_path)
+    program = [e for e in events if e.get("cat") == "program"]
+    own = [e for e in events if e.get("ph") == "X" and e.get("cat") != "program"]
+    assert own
+    names = {e["name"] for e in program}
+    assert {"feed", "superblock", "finalize", "upload", "sync", "fetch"} <= names
+    assert {e["args"]["ch"] for e in program if e["name"] == "finalize"} == {0, 1}
+    superblocks = [e for e in program if e["name"] == "superblock"]
+    assert [e["args"]["sb"] for e in superblocks] == list(range(len(superblocks)))
+    lo = min(e["ts"] for e in own)
+    hi = max(e["ts"] + e["dur"] for e in own)
+    for e in program:
+        assert lo <= e["ts"] and e["ts"] + e["dur"] <= hi, e
+    [meta] = [e["args"] for e in events if e["name"] == "program_spans"]
+    assert meta == {"recorded": len(program), "dropped": 0, "capacity": spans.CAPACITY}
+
+
+def test_the_profile_says_how_many_spans_were_dropped(capture, tmp_path, monkeypatch, caplog):
+    """Past spans.CAPACITY, trace.json counts the spans dropped and the app
+    logs a warning."""
+    monkeypatch.setattr(spans, "CAPACITY", 20)
+    with caplog.at_level(logging.WARNING, logger="readsb_tpu_torch"):
+        events = _profile_two_files(capture, tmp_path)
+    program = [e for e in events if e.get("cat") == "program"]
+    [meta] = [e["args"] for e in events if e["name"] == "program_spans"]
+    assert len(program) == meta["recorded"] == 20 and meta["dropped"] > 0
+    assert f"{meta['dropped']} program spans past the first 20 were dropped" in caplog.text
 
 
 def test_cli_writes_the_json_files(capture, in_process, tmp_path):
