@@ -170,17 +170,21 @@ def _fetch(gc, names: tuple[str, ...]) -> list[np.ndarray]:
         return [getattr(gc, n).cpu().numpy() for n in names]
 
 
+# the counters a superblock span notes the gains of; `pinned` is
+# MultiDemodulator's alone
+_NOTED = ("candidates", "kept", "redispatches", "pinned")
+
+
 def _superblock(method):
     """Runs `method` as its demodulator's next superblock: in a span that
     notes what the counters gained inside it, and counted once it returns."""
 
     @functools.wraps(method)
     def run(d, *args):
-        before = d.candidates, d.kept, d.redispatches
+        before = [(k, getattr(d, k)) for k in _NOTED if hasattr(d, k)]
         with span("superblock", sb=d.superblocks) as sp:
             out = method(d, *args)
-            sp.note(candidates=d.candidates - before[0], kept=d.kept - before[1],
-                    redispatches=d.redispatches - before[2])
+            sp.note(**{k: getattr(d, k) - v for k, v in before})
         d.superblocks += 1
         return out
 
@@ -695,7 +699,11 @@ class MultiDemodulator:
     drop_cum_chan differencing.
 
     feed() takes one bytes chunk per channel (lockstep streams: C SDRs
-    sharing one sample clock).
+    sharing one sample clock).  Each superblock's IQ is written once, into
+    one host buffer that the demodulator owns and reuses (pinned on a
+    card), and goes to the device in one copy, asynchronous on a card; the
+    next write waits for that copy to end.  `pinned` counts the superblocks
+    that went so (flush() stages its own zero-padded array).
     """
 
     SEG_PAD = 512  # >= 326-sample halo + margin; keeps 256-alignment
@@ -750,6 +758,16 @@ class MultiDemodulator:
         )
         self.mean_level = np.zeros(n_chan)
         self.mean_power = np.zeros(n_chan)
+        on_card = self.device.type == "cuda"
+        self._staging = torch.empty(
+            (n_chan, self.seg_valid * BYTES_PER_SAMPLE[fmt]), dtype=torch.uint8,
+            pin_memory=on_card,
+        )
+        self._staging_np = self._staging.numpy()  # the rows feed() writes
+        # raw words (I in the low byte) or interleaved int16 I/Q, as uploaded
+        self._staging_words = self._staging.view(torch.uint16 if self.raw_route else torch.int16)
+        self._copied = torch.cuda.Event() if on_card else None  # the last copy out of it
+        self.pinned = 0
 
     @property
     def raw_route(self) -> bool:
@@ -760,7 +778,7 @@ class MultiDemodulator:
         """Feed one bytes chunk per channel; returns per-channel frames."""
         if len(raws) != self.n_chan:
             raise ValueError(f"expected {self.n_chan} channel chunks, got {len(raws)}")
-        super_bytes = self.seg_valid * BYTES_PER_SAMPLE[self.fmt]
+        super_bytes = self._staging_np.shape[1]
         with span("feed"):
             with span("stage", sb=self.superblocks):
                 for c, r in enumerate(raws):
@@ -768,14 +786,16 @@ class MultiDemodulator:
             out: list[list[RawFrame]] = [[] for _ in range(self.n_chan)]
             while min(len(p) for p in self._pending) >= super_bytes:
                 with span("stage", sb=self.superblocks):
-                    chunk = np.stack([np.frombuffer(p, dtype=np.uint8, count=super_bytes)
-                                      for p in self._pending])
+                    if self._copied is not None:
+                        self._copied.synchronize()  # the buffer's last copy has left it
+                    for row, p in zip(self._staging_np, self._pending):
+                        row[:] = np.frombuffer(p, dtype=np.uint8, count=super_bytes)
                     self._pending = [p[super_bytes:] for p in self._pending]
-                got = self._process(chunk, self.seg_valid)
-                with span("stage", sb=self.superblocks - 1):
-                    del chunk  # the staged array's pages go back, counted as staging
+                got = self._process(self._staging, self.seg_valid)
                 for c in range(self.n_chan):
                     out[c].extend(got[c])
+            # hold no caller's buffer (a bytearray, a memoryview) past the call
+            self._pending = [p if type(p) is bytes else bytes(p) for p in self._pending]
             return out
 
     def flush(self) -> list[list[RawFrame]]:
@@ -796,24 +816,44 @@ class MultiDemodulator:
         self._pending = [b""] * self.n_chan
         return self._process(chunk, n)
 
+    def _upload_staged(self) -> torch.Tensor:
+        """The staging buffer on the device as words (raw route) or
+        magnitudes (C, S): one copy, asynchronous from pinned memory on a
+        card, and an event behind it; on the CPU the buffer itself."""
+        with span("upload"):
+            with span("upload.h2d"):
+                src = self._staging_words.to(self.device, non_blocking=True)
+                if self._copied is not None:
+                    self._copied.record(torch.cuda.current_stream(self.device))
+            self.pinned += 1
+            if self.raw_route:
+                return src
+            with span("upload.convert"):
+                mag = (convert_ops.mag_sc16 if self.fmt == "sc16" else convert_ops.mag_sc16q11)(src)
+            return mag.reshape(self.n_chan, self.seg_valid)
+
     @_superblock
     def _process(self, chunk, valid_len: int) -> list[list[RawFrame]]:
-        """One superblock: uint8[C, bytes] IQ bytes or, on the raw route,
-        PRE-STAGED uint16[C, S] words on the device (no per-dispatch IQ
-        upload)."""
+        """One superblock: the staging buffer, uint8[C, bytes] IQ bytes or,
+        on the raw route, PRE-STAGED uint16[C, S] words on the device (no
+        per-dispatch IQ upload)."""
         shape = (self.n_chan, self.seg_valid)
-        if self.raw_route:
+        if chunk is self._staging:
+            samples = self._upload_staged()
+        elif self.raw_route:
             if isinstance(chunk, torch.Tensor):
                 samples = chunk.to(self.device)
             else:
                 samples = _words_from_bytes(chunk, shape, self.device)
             if samples.dtype != torch.uint16 or tuple(samples.shape) != shape:
                 raise ValueError(f"expected uint16{list(shape)} words")
-            dispatch, overlaps = _demod_and_gate_multi_raw, self._overlap_words
         else:
             if isinstance(chunk, torch.Tensor):
                 raise ValueError("pre-staged words are taken on the raw-UC8 route only")
             samples = _to_mag(chunk.reshape(-1), self.fmt, self.device).reshape(shape)
+        if self.raw_route:
+            dispatch, overlaps = _demod_and_gate_multi_raw, self._overlap_words
+        else:
             dispatch, overlaps = _demod_and_gate_multi, self._overlap_dev
         while True:
             with span("dispatch"):
@@ -851,16 +891,16 @@ class MultiDemodulator:
         results: list[list[RawFrame]] = []
         all_frames: list[RawFrame] = []
         for c in range(self.n_chan):
-            a, b = int(bounds[c]), int(bounds[c + 1])
-            loc = offs[a:b] - c * self.seg_stride
-            kw = dict(
-                scan_len=self.seg_valid,
-                block_scan_start=self.scan_global,
-                carry_skip=self._skips[c],
-                reset_every=self.block_samples,
-            )
-            args = (loc, b - a, cf[a:b], msgb[a:b], s112[a:b], s56[a:b], sl64[a:b], ss64[a:b])
-            with span("finalize", ch=c):
+            with span("finalize", ch=c):  # with the slicing of the channel's rows
+                a, b = int(bounds[c]), int(bounds[c + 1])
+                loc = offs[a:b] - c * self.seg_stride
+                kw = dict(
+                    scan_len=self.seg_valid,
+                    block_scan_start=self.scan_global,
+                    carry_skip=self._skips[c],
+                    reset_every=self.block_samples,
+                )
+                args = (loc, b - a, cf[a:b], msgb[a:b], s112[a:b], s56[a:b], sl64[a:b], ss64[a:b])
                 if self.native:
                     frames, _ = self.fins[c].finalize_block(*args, **kw)
                 else:

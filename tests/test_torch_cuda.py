@@ -905,3 +905,45 @@ def test_bench_dispatch_on_the_card_equals_the_cpu(dev):
         g, w = getattr(got, f), getattr(want, f)
         assert (g is None) == (w is None), f
         assert w is None or (g.is_cuda and torch.equal(g.cpu(), w)), f
+
+
+def test_the_staging_buffer_is_pinned_and_kept(dev):
+    m = MultiDemodulator(4, fmt="sc16", blocks_per_batch=1, use_native=False, device=dev)
+    ptr = m._staging.data_ptr()
+    assert m._staging.is_pinned() and m._copied is not None
+    caps = [quantize_sc16(build_standard_capture(0.2, 2, s).render_iq()).tobytes()
+            for s in range(4)]
+    m.feed(caps)
+    assert m.pinned == m.superblocks >= 3 and m._staging.data_ptr() == ptr
+    assert m._copied.query()
+
+
+@pytest.mark.parametrize("at_once", [False, True], ids=["per_superblock", "at_once"])
+@pytest.mark.parametrize("fmt", ["uc8", "sc16"])
+def test_staged_card_run_equals_the_cpu_run(dev, fmt, at_once):
+    """Four channels over five superblocks and a flush, fed one superblock
+    per call or all in one call (the buffer is written again while the
+    call goes on: after the event of its last copy)."""
+    caps = [build_standard_capture(0.3, 3, s) for s in (11, 12, 13, 14)]
+    if fmt == "sc16":
+        raws = [quantize_sc16(c.render_iq()).tobytes() for c in caps]
+    else:
+        raws = [bytes(c.render_uc8()) for c in caps]
+
+    def run(device):
+        m = MultiDemodulator(4, fmt=fmt, blocks_per_batch=1, use_native=False, device=device)
+        step = m.seg_valid * pipeline.BYTES_PER_SAMPLE[fmt]
+        n = len(raws[0]) // step
+        calls = [raws] if at_once else [[r[i * step:(i + 1) * step] for r in raws]
+                                        for i in range(n + 1)]
+        out = [[] for _ in range(4)]
+        for call in calls:
+            for c, got in enumerate(m.feed(call)):
+                out[c].extend(got)
+        assert m.pinned == m.superblocks == n >= 3
+        for c, got in enumerate(m.flush()):
+            out[c].extend(got)
+        return out, [vars(m.channel_stats(c)) for c in range(4)]
+
+    card = run(dev)
+    assert card == run("cpu") and sum(map(len, card[0])) > 10

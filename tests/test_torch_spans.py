@@ -89,8 +89,9 @@ def test_on_spans_nest_per_superblock(streams, fmt):
             chans = sorted(s.ch for s in rec if s.name == name and s.sb == sb)
             assert chans == list(range(N_CHAN)), (name, sb)
         inside = {s.name for s in rec if s.sb == sb}
-        assert {"stage", "upload", "upload.copy", "upload.h2d", "upload.free", "dispatch",
-                "sync", "fetch", "icao"} <= inside
+        assert {"stage", "upload", "upload.h2d", "dispatch", "sync", "fetch", "icao"} <= inside
+        # staged into the reused buffer: no host copy to make or to free
+        assert not {"upload.copy", "upload.free"} & inside
     assert ("upload.convert" in {s.name for s in rec}) == (fmt == "sc16")
     assert sum(s.counts["candidates"] for s in sbs) == m.candidates
     assert sum(s.counts["kept"] for s in sbs) == m.kept
