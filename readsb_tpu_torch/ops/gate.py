@@ -21,8 +21,11 @@ host would provably reject (score -1/-2):
   - the drop counters returned (pre/unknown/bad) are exactly the stats
     the host would have counted for the dropped candidates.
 
-If the in-block teach-set overflows its capacity, membership degrades to
-"known" for everyone (pass-through) — more transfer, same semantics.
+The in-block teach set is one sorted table with an entry per phase of the
+dispatch: the phase's address where it learns, TBL_SENTINEL elsewhere.
+It has no capacity to overflow, so the union is exact at any traffic and
+any channel count.  (readsb_tpu holds 256 learning phases and past that
+lets every ICAO-dependent candidate pass: more rows, the same frames.)
 Table membership is a binary search (torch.searchsorted) in sorted tables.
 
 When the candidates carry per-phase flags (kernels.extract_classify_v3
@@ -58,6 +61,13 @@ def _table_syndromes_np(bits: int, nfix: int) -> np.ndarray:
     """Sorted int32 syndrome values of the nfix-bit error table."""
     tab = crc_ops.error_table(bits, min(nfix, 2))
     return np.asarray(tab.syndromes, dtype=np.int64).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_syndromes_on(bits: int, nfix: int, device: torch.device) -> torch.Tensor:
+    """_table_syndromes_np on the device, sent once per device: a pageable
+    copy in every dispatch would wait for the work queued before it."""
+    return torch.from_numpy(_table_syndromes_np(bits, nfix)).to(device)
 
 
 def _isin_sorted(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -174,7 +184,6 @@ def score_gate(
     *,
     scan_len: int,
     k2: int = 1024,
-    s_cap: int = 256,
     nfix: int = 1,
     fix_df: bool = True,
     reset_every: int | None = None,
@@ -208,7 +217,10 @@ def score_gate(
     aa = (msg[:, :, 1] << 16) | (msg[:, :, 2] << 8) | msg[:, :, 3]
     syn112 = bc.syn112
     syn56 = bc.syn56
-    fired = bc.corr_fired[:, [0, 0, 1, 1, 2]]
+    # phase -> corr_fired column (0, 0, 1, 1, 2) by views: a list index
+    # would be a host-to-device copy that waits for the stream
+    cf = bc.corr_fired
+    fired = torch.stack([cf[:, 0], cf[:, 0], cf[:, 1], cf[:, 1], cf[:, 2]], dim=1)
 
     if bc.flags is not None:
         # the extraction kernel already classified each phase
@@ -225,10 +237,8 @@ def score_gate(
 
         # --- syndrome table membership -----------------------------------
         if nfix > 0:
-            in_t112 = _isin_sorted(
-                syn112, torch.from_numpy(_table_syndromes_np(112, nfix)).to(dev))
-            in_t56 = _isin_sorted(
-                syn56, torch.from_numpy(_table_syndromes_np(56, nfix)).to(dev))
+            in_t112 = _isin_sorted(syn112, _table_syndromes_on(112, nfix, dev))
+            in_t56 = _isin_sorted(syn56, _table_syndromes_on(56, nfix, dev))
         else:
             in_t112 = torch.zeros_like(syn112, dtype=torch.bool)
             in_t56 = torch.zeros_like(syn56, dtype=torch.bool)
@@ -245,25 +255,14 @@ def score_gate(
         ((df == 17) & (syn112 == 0))
         | ((df == 11) & (syn56 == 0))  # clean CRC and IID==0 <=> syn56 == 0
     )
-    flat_learn = learn.reshape(-1)
-    flat_aa = aa.reshape(-1)
-    n_flat = flat_learn.shape[0]
-    n_pad = -(-n_flat // 256) * 256
-    # small local capacity: learners are sparse; a block overflowing it
-    # degrades to pass-through via s_overflow, which is always safe
-    s_idx, s_watermark = _compact_two_level(flat_learn, s_cap, 32, n_pad)
-    s_count = flat_learn.sum(dtype=torch.int32)
-    s_vals = torch.where(
-        s_idx < n_flat, flat_aa[s_idx.clamp(max=n_flat - 1).to(torch.int64)], -1
-    )
-    s_overflow = (s_count > s_cap) | (s_watermark > 32)
+    # TBL_SENTINEL is above every 24-bit residual: padding never matches
+    s_tbl = torch.sort(torch.where(learn, aa, TBL_SENTINEL).reshape(-1)).values
 
     # --- known-ICAO test: residual in (known table U teach-set) ------------
     residual = torch.where(df >= 16, syn112, syn56) & 0xFFFFFF
     # with flags, the kernel probed the same table
     in_tbl = in_tbl_pre if in_tbl_pre is not None else _isin_sorted(residual, known_tbl)
-    in_s = _isin_sorted(residual, torch.sort(s_vals).values)
-    known = in_tbl | in_s | s_overflow
+    known = in_tbl | _isin_sorted(residual, s_tbl)
 
     # --- per-phase class: 2 pass / 1 reject-unknown (-1) / 0 reject-bad (-2)
     is_short_icao = (df == 0) | (df == 4) | (df == 5)

@@ -947,3 +947,49 @@ def test_staged_card_run_equals_the_cpu_run(dev, fmt, at_once):
 
     card = run(dev)
     assert card == run("cpu") and sum(map(len, card[0])) > 10
+
+
+@pytest.fixture(scope="module")
+def quiet64():
+    """The benchmark's quiet kind of traffic on 64 sc16 receivers, eight
+    aircraft each: two superblocks of four blocks per receiver."""
+    n = 2 * 4 * 131072
+    return [quantize_sc16(build_standard_capture(n / 2.4e6 + 0.01, 8, 300 + c).render_iq())
+            .tobytes()[: n * 4] for c in range(64)]
+
+
+def test_score_gate_at_64_channels_does_not_sync(dev, quiet64):
+    """One 64-channel score_gate call under sync debug mode "error": the
+    exact teach set (a sort and a binary search) adds no host sync."""
+    m = MultiDemodulator(64, fmt="sc16", blocks_per_batch=4, device=dev)
+    step = m.seg_valid * 4
+    first = [r[:step] for r in quiet64]
+    m.feed(first)  # builds the kernels and sends the gate's tables
+    words = torch.from_numpy(np.stack([np.frombuffer(r, np.int16) for r in first])).to(dev)
+    mags = convert.mag_sc16(words).reshape(64, m.seg_valid)
+    buf = pipeline.multi_buffer(mags, torch.zeros((64, 326), dtype=torch.uint16, device=dev),
+                                m.seg_stride, m.seg_valid)
+    bc, hi, lo = demod._demod_core(buf, m.threshold, k=m.k, scan_len=m.scan_len, l=m.compact_l,
+                                   seg_stride=m.seg_stride, seg_valid=m.seg_valid,
+                                   nfix=m.nfix, fix_df=m.fix_df)
+    tbl = m.mirror.tbl
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gc = gate.score_gate(bc, tbl, hi, lo, m.seg_valid, scan_len=m.scan_len, k2=m.gate_k2,
+                             nfix=m.nfix, fix_df=m.fix_df, reset_every=m.block_samples,
+                             seg_stride=m.seg_stride, keep_l=m.gate_keep_l)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_keep, n_cand = int(gc.n_keep), int(gc.n_cand)
+    assert n_cand > 100_000 and 0 < n_keep < 0.02 * n_cand
+
+
+def test_multidemodulator_64_quiet_keeps_its_first_gate_k2(dev, quiet64):
+    """64 quiet sc16 receivers over two superblocks: the gate keeps under
+    2% of the candidates, within the first gate_k2 (4096), never redone."""
+    m = MultiDemodulator(64, fmt="sc16", blocks_per_batch=4, device=dev)
+    assert m.gate_k2 == 4096
+    frames = m.feed(quiet64)
+    assert m.superblocks == 2 and m.redispatches == 0 and m.gate_k2 == 4096
+    assert 0 < m.kept < 0.02 * m.candidates and sum(map(len, frames)) > 1000

@@ -1,6 +1,11 @@
 """Score gate of the port against readsb_tpu: every GatedCandidates field,
 drop counters included, for the single-channel and seg_stride layouts.
-Tolerance 0 (integer outputs)."""
+Tolerance 0 (integer outputs).
+
+Where a dispatch learns more phases than readsb_tpu's 256-entry teach set
+holds, readsb_tpu passes every ICAO-dependent candidate and the port's
+exact teach set does not: there the port keeps a subset of readsb_tpu's
+rows, and the frames and stats of the stream stay equal."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +16,10 @@ import torch
 from readsb_tpu.ops import convert as jax_convert
 from readsb_tpu.ops import demod as jax_demod
 from readsb_tpu.ops import gate as jax_gate
+from readsb_tpu.pipeline import MultiDemodulator as JaxMultiDemodulator
+from readsb_tpu_torch import synth
 from readsb_tpu_torch.ops import demod, gate
+from readsb_tpu_torch.pipeline import MultiDemodulator
 from tools.synth import build_standard_capture
 
 # the suite runs in several worker processes that share the cores
@@ -21,7 +29,10 @@ TRAILING = 326
 
 
 def _mags(seed: int, duration: float) -> np.ndarray:
-    cap = build_standard_capture(duration_s=duration, n_aircraft=3, seed=seed)
+    return _mags_of(build_standard_capture(duration_s=duration, n_aircraft=3, seed=seed))
+
+
+def _mags_of(cap) -> np.ndarray:
     iq = cap.render_iq()
     raw = np.empty(len(iq) * 2, dtype=np.uint8)
     raw[0::2] = np.clip(np.round(iq.real * 127.5 + 127.5), 0, 255).astype(np.uint8)
@@ -132,3 +143,81 @@ def test_icao_mirror_equals_jax():
         assert swapped[0] == swapped[1]
         np.testing.assert_array_equal(tm.tbl.numpy(), np.asarray(jm.tbl))
         assert tm.next_swap_ms == jm.next_swap_ms
+
+
+# eight receivers of eight aircraft, one superblock of four blocks each: a
+# dispatch with more learning phases than readsb_tpu's 256-entry teach set
+_DENSE_CHAN = 8
+_DENSE_SEG = 4 * 131072
+
+
+def _dense_capture(c: int):
+    return synth.build_standard_capture(_DENSE_SEG / 2.4e6 + 0.01, 8, 100 + c)
+
+
+def _learners(bc) -> int:
+    """Fired phases that could teach the ICAO filter (score_gate's learn)."""
+    msg = bc.msg.to(torch.int32)
+    df = msg[:, :, 0] >> 3
+    fired = bc.corr_fired[:, [0, 0, 1, 1, 2]]
+    learn = fired & (((df == 17) & (bc.syn112 == 0)) | ((df == 11) & (bc.syn56 == 0)))
+    return int(learn.sum())
+
+
+def test_gate_teach_set_is_exact_where_jaxs_overflows():
+    """The port keeps under 2% of the candidates, every row it keeps
+    readsb_tpu keeps too, with the same fields, and both count the same
+    valid candidates (pre_drop + n_keep)."""
+    stride = _DENSE_SEG + 512
+    scan_len = _DENSE_CHAN * stride
+    buf = np.zeros(scan_len + 512, np.uint16)
+    for c in range(_DENSE_CHAN):
+        buf[c * stride + TRAILING : c * stride + TRAILING + _DENSE_SEG] = (
+            _mags_of(_dense_capture(c))[:_DENSE_SEG])
+    (bcj, hj, lj), (bct, ht, lt) = _cores(
+        buf, k=_DENSE_CHAN * 4 * 2048, scan_len=scan_len, seg_stride=stride, seg_valid=_DENSE_SEG)
+    assert int(bct.n_cand) <= bct.offsets.shape[0]
+    assert _learners(bct) > 256
+    kw = dict(scan_len=scan_len, k2=32768, nfix=1, fix_df=False, reset_every=65536,
+              keep_l=256, seg_stride=stride)
+    tbl = _known_table([])
+    want = _jax_gate(bcj, jnp.asarray(tbl), hj, lj, jnp.int32(_DENSE_SEG - 300), **kw)
+    got = gate.score_gate(bct, torch.from_numpy(tbl), ht, lt, _DENSE_SEG - 300, **kw)
+    for g in (want, got):
+        assert int(g.n_keep) <= kw["k2"] and int(g.keep_watermark) <= kw["keep_l"]
+    n_keep, n_keep_j = int(got.n_keep), int(want.n_keep)
+    assert int(got.pre_drop) + n_keep == int(want.pre_drop) + n_keep_j
+    assert 0 < n_keep < 0.02 * (int(got.pre_drop) + n_keep)
+    offs_j = np.asarray(want.offsets)[:n_keep_j]
+    rows = np.searchsorted(offs_j, got.offsets[:n_keep].numpy())
+    np.testing.assert_array_equal(offs_j[rows], got.offsets[:n_keep].numpy())
+    for field in ("msg", "syn112", "syn56", "corr_fired", "sig_long", "sig_short"):
+        np.testing.assert_array_equal(
+            getattr(got, field)[:n_keep].numpy(), np.asarray(getattr(want, field))[rows],
+            err_msg=field)
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_multidemodulator_with_an_exact_teach_set_equals_jax(use_native):
+    """Eight sc16 receivers, one superblock of four blocks: the port keeps
+    under 2% of the candidates at its first gate_k2, and its frames and
+    per-channel stats equal readsb_tpu's, which passes a quarter."""
+    caps = [synth.quantize_sc16(_dense_capture(c).render_iq()).tobytes()[: _DENSE_SEG * 4]
+            for c in range(_DENSE_CHAN)]
+    key = lambda fr: [(f.msg, f.timestamp, f.phase, f.score, f.signal_power, f.scan_offset)
+                      for f in fr]
+    stats = lambda s: (s.preambles, s.rejected_bad, s.rejected_unknown_icao, list(s.accepted))
+    runs = []
+    for cls, kw in ((JaxMultiDemodulator, {}), (MultiDemodulator, {"device": "cpu"})):
+        d = cls(_DENSE_CHAN, fmt="sc16", blocks_per_batch=4, use_native=use_native, **kw)
+        frames = d.feed(caps)
+        for c, tail in enumerate(d.flush()):
+            frames[c].extend(tail)
+        runs.append((d, frames))
+    (j, want), (p, got) = runs
+    assert p.superblocks == 1 and p.redispatches == 0 and p.gate_k2 == 1024  # its first
+    assert 0 < p.kept < 0.02 * p.candidates
+    assert sum(len(w) for w in want) > 100
+    for c in range(_DENSE_CHAN):
+        assert key(got[c]) == key(want[c]), f"channel {c} frames"
+        assert stats(p.channel_stats(c)) == stats(j.channel_stats(c)), f"channel {c} stats"
