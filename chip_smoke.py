@@ -2498,7 +2498,15 @@ def main() -> None:
     # kernel #4 at the magnitude route's shape: 64 channels of sc16 magnitudes
     first16 = np.stack([np.frombuffer(ch, dtype=np.uint8, count=BLOCK_SAMPLES * 4)
                         for ch in chunks16])
-    mags = pipeline._to_mag(first16.reshape(-1), "sc16", DEV).reshape(N_CHAN, BLOCK_SAMPLES)
+
+    def staged_upload16():
+        """first16 written into multi16's staging buffer and sent to the
+        card as magnitudes (N_CHAN, BLOCK_SAMPLES), as feed() stages it."""
+        multi16._copied.synchronize()
+        multi16._staging_np[:] = first16
+        return multi16._upload_staged()
+
+    mags = staged_upload16()
     overlap_mag = torch.zeros((N_CHAN, 326), dtype=torch.uint16, device=DEV)
     magp = demod_ops.pad_mag(
         pipeline.multi_buffer(mags, overlap_mag, multi16.seg_stride, multi16.seg_valid)
@@ -2697,16 +2705,17 @@ def main() -> None:
 
     # the magnitude route: one dispatch from pre-staged magnitudes, and feed()
     def dispatch16():
-        return pipeline._demod_and_gate_multi(
+        return pipeline.gated_dispatch(
             mags, overlap_mag, multi16.seg_valid, thr, multi16.mirror.tbl,
-            k=multi16.k, scan_len=multi16.scan_len, l=multi16.compact_l, k2=multi16.gate_k2,
+            raw_uc8=False, k=multi16.k, scan_len=multi16.scan_len, l=multi16.compact_l,
+            k2=multi16.gate_k2,
             nfix=multi16.nfix, fix_df=multi16.fix_df, reset_every=multi16.block_samples,
             seg_stride=multi16.seg_stride, seg_valid=multi16.seg_valid,
             keep_l=multi16.gate_keep_l,
         )
 
     ms_dispatch16 = statistics.median(bench.time_dispatch(dispatch16))
-    ms_tomag16 = time_ms(lambda: pipeline._to_mag(first16.reshape(-1), "sc16", DEV), reps=5)
+    ms_tomag16 = time_ms(staged_upload16, reps=5)
 
     def make16():
         m2 = pipeline.MultiDemodulator(N_CHAN, fmt="sc16", blocks_per_batch=1, use_native=True)
@@ -2716,7 +2725,7 @@ def main() -> None:
         return m2
 
     t_feed16 = host_median_s(lambda m2: m2.feed(chunks16), make16)
-    t_tomag16 = host_median_s(lambda _: pipeline._to_mag(first16.reshape(-1), "sc16", DEV))
+    t_tomag16 = host_median_s(lambda _: staged_upload16())
     t_stack16 = host_median_s(lambda _: np.stack(
         [np.frombuffer(p, dtype=np.uint8, count=BLOCK_SAMPLES * 4) for p in chunks16]))
     log(f"sc16: one dispatch (device, pre-staged magnitudes): {ms_dispatch16:.3f} ms = "

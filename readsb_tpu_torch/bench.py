@@ -7,10 +7,10 @@ The port of the JAX repo's `bench.py`:
 The headline is the aggregate multichannel rate: n_chan (default 64)
 virtual receiver channels of one 131072-sample block each (the reference's
 SDR buffer cadence, readsb.c:228) demodulated by one dispatch of the
-production channel-batched program, `pipeline._demod_and_gate_multi_raw`
-(raw UC8 words in, the gated candidates out), on words already on the card.
-The capture is bench.py's: `synth.build_standard_capture`, 8 aircraft,
-seed 3, quantized to UC8.
+production channel-batched program, `pipeline.gated_dispatch` on the raw
+route (raw UC8 words in, the gated candidates out), on words already on
+the card.  The capture is bench.py's: `synth.build_standard_capture`, 8
+aircraft, seed 3, quantized to UC8.
 
 Timing: CUDA events around 10 back-to-back dispatches, 5 runs after a
 warm-up; the median run per dispatch is the headline, with every run's ms
@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .constants import BLOCK_SAMPLES, PREAMBLE_THRESHOLD_DEFAULT, SAMPLE_RATE, TRAILING_SAMPLES
-from .pipeline import SILENT_WORD, MultiDemodulator, _demod_and_gate_multi_raw
+from .pipeline import SILENT_WORD, MultiDemodulator, gated_dispatch
 from .synth import build_standard_capture, quantize_uc8
 from .tools import device_fields, require_card
 
@@ -78,19 +78,20 @@ def dispatch_args(multi: MultiDemodulator) -> dict:
 
 def make_dispatch(multi: MultiDemodulator, words: torch.Tensor):
     """One dispatch of the raw route over words (n_chan, BLOCK_SAMPLES)
-    uint16 staged on the demodulator's device, as a closure; the overlap is
-    the stream's first (silent) one, so it repeats feed()'s first dispatch
-    of those words.  The routes' module constants (pipeline.FUSE_CLASSIFY,
-    ops.demod.USE_FUSED) are read at each call."""
+    uint16 staged on the demodulator's device, as a closure that returns
+    the GatedCandidates; the overlap is the stream's first (silent) one, so
+    it repeats feed()'s first dispatch of those words.  The routes' module
+    constants (pipeline.FUSE_CLASSIFY, ops.demod.USE_FUSED) are read at
+    each call."""
     overlap = torch.full((multi.n_chan, TRAILING_SAMPLES), SILENT_WORD, dtype=torch.uint16,
                          device=multi.device)
     kw = dispatch_args(multi)
     tbl = multi.mirror.tbl
 
     def dispatch():
-        return _demod_and_gate_multi_raw(
-            words, overlap, multi.seg_valid, PREAMBLE_THRESHOLD_DEFAULT, tbl, **kw
-        )
+        return gated_dispatch(
+            words, overlap, multi.seg_valid, PREAMBLE_THRESHOLD_DEFAULT, tbl, raw_uc8=True, **kw
+        )[0]
 
     return dispatch
 

@@ -340,3 +340,22 @@ def finalize_block(
             skip_until = min(skip_until, (o // reset_every + 1) * reset_every)
 
     return frames, max(0, skip_until - scan_len)
+
+
+class ScoreFinalizer:
+    """A Scorer and finalize_block behind native.NativeFinalizer's calls, so
+    the demodulators hold either without asking which.  The plain finalizer
+    is the reference the native one is held to."""
+
+    def __init__(self, nfix: int = 1, fix_df: bool = True):
+        self.scorer = Scorer(nfix=nfix, fix_df=fix_df)
+
+    def finalize_block(self, *args, **kw) -> tuple[list[RawFrame], int]:
+        return finalize_block(self.scorer, *args, **kw)
+
+    def icao_expire(self, now_ms: int) -> None:
+        self.scorer.icao.expire(now_ms)
+
+    def stats(self) -> dict:
+        """DemodStats' fields as a dict of copies, as NativeFinalizer.stats."""
+        return dataclasses.asdict(self.scorer.stats)

@@ -226,8 +226,9 @@ def _jax_process_mag(mag, monkeypatch, l_row=None):
 
 
 def test_pipeline_use_fused_equals_readsb_tpu(capture, monkeypatch, use_fused):
-    """2 blocks = 4 tiles, cap 1024: frames, timestamps and stats equal
-    readsb_tpu's under USE_FUSED and the port's own staged run.  The last
+    """2 blocks and the channel segment's SEG_PAD = 5 tiles, cap 4096 // 5 =
+    819: frames, timestamps and stats equal readsb_tpu's under USE_FUSED
+    (4 tiles, cap 1024) and the port's own staged run.  The last
     326 samples are silent: readsb_tpu's fused route reads zeros after
     scan_len, the port (as both staged routes) the samples that are there."""
     mag = capture[0][: 2 * 131072].copy()
@@ -238,7 +239,7 @@ def test_pipeline_use_fused_equals_readsb_tpu(capture, monkeypatch, use_fused):
     monkeypatch.setattr(fused, "fused_demod_tiles",
                         lambda *a, **k: calls.append(k["cap"]) or real(*a, **k))
     got = _port_process_mag(mag)
-    assert calls == [1024] and got[2]._force_staged is False
+    assert calls == [819] and got[2]._force_staged is False
     assert len(got[0]) > 0 and got[:2] == want[:2]
     demod.USE_FUSED = False
     assert _port_process_mag(mag)[:2] == got[:2]

@@ -100,7 +100,7 @@ def test_raw_route_equals_jax_interpret(monkeypatch):
     assert len(want) > 0
     assert _key(got) == _key(want)
     assert _stats(p.stats) == _stats(j.stats)
-    np.testing.assert_array_equal(p._overlap_words.numpy(), np.asarray(j._overlap_words))
+    np.testing.assert_array_equal(p._overlap_words[0].numpy(), np.asarray(j._overlap_words))
 
 
 def test_demodulate_file_equals_jax(tmp_path):
@@ -153,8 +153,8 @@ def test_state_handover_single(capture):
     assert len(want) > 5
     assert _key(got) == _key(want)
     assert _stats(p.stats) == _delta(j.stats, before)
-    assert _filter(p.scorer.icao) == _filter(j.scorer.icao)
-    np.testing.assert_array_equal(p.icao_mirror.tbl.numpy(), np.asarray(j.icao_mirror.tbl))
+    assert _filter(p.fins[0].scorer.icao) == _filter(j.scorer.icao)
+    np.testing.assert_array_equal(p.mirror.tbl.numpy(), np.asarray(j.icao_mirror.tbl))
 
 
 def test_state_handover_multi(captures):
@@ -173,7 +173,7 @@ def test_state_handover_multi(captures):
     for c, (tw, tg) in enumerate(zip(j.flush(), p.flush())):
         assert _key(got[c] + tg) == _key(want[c] + tw), f"channel {c}"
         assert _stats(p.channel_stats(c)) == _delta(j.channel_stats(c), before[c])
-        assert _filter(p.fins[c].icao) == _filter(j.fins[c].icao)
+        assert _filter(p.fins[c].scorer.icao) == _filter(j.fins[c].icao)
 
 
 def test_state_rejects_bad_values():
@@ -197,7 +197,7 @@ def test_state_rejects_bad_values():
     with pytest.raises(ValueError):
         p.load_state(demod_state_from_numpy({**good, "overlap_words": np.zeros((2, 326), np.uint16),
                                              "icao": good["icao"] * 2}))
-    assert torch.equal(p._overlap_words, torch.full((326,), 0x8080, dtype=torch.uint16))
+    assert torch.equal(p._overlap_words[0], torch.full((326,), 0x8080, dtype=torch.uint16))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +246,7 @@ def test_magnitude_route_equals_jax(sc16_capture, fmt, use_gate, use_native):
     assert _stats(p.stats) == _stats(j.stats)
     _hold_levels(p, j)
     overlap = j._overlap_dev if use_gate else j.overlap
-    np.testing.assert_array_equal(p._overlap_dev.numpy(), np.asarray(overlap))
+    np.testing.assert_array_equal(p._overlap_dev[0].numpy(), np.asarray(overlap))
 
 
 def test_ungated_uc8_equals_jax_interpret(monkeypatch):
@@ -266,8 +266,8 @@ def test_ungated_uc8_equals_jax_interpret(monkeypatch):
 
 
 def test_gated_prefetch_feed_equals_one_by_one(sc16_capture):
-    """Several superblocks in one feed() (the prefetch branch) against the
-    same bytes fed a superblock at a time, and against readsb_tpu."""
+    """Several superblocks in one feed() against the same bytes fed a
+    superblock at a time, and against readsb_tpu."""
     kw = dict(fmt="sc16", blocks_per_batch=1, use_native=False)
     a = Demodulator(device="cpu", **kw)
     fa = _run(a, sc16_capture)
@@ -325,6 +325,27 @@ def test_process_mag_equals_jax(kw):
         _hold_levels(p, j)
     with pytest.raises(ValueError):
         p.process_mag(mag[:1000])
+
+
+@pytest.mark.parametrize("fmt,use_gate", [("uc8", True), ("sc16", True), ("sc16", False)],
+                         ids=["gated-uc8", "gated-sc16", "ungated-sc16"])
+def test_single_receiver_escalation_equals_jax(sc16_capture, fmt, use_gate):
+    """Capacities too small for the traffic (k_per_block=128): the single
+    receiver redoes dispatches until they fit and ends with readsb_tpu's
+    frames, stats and capacities."""
+    raw = _uc8(0.25, 4, 7) if fmt == "uc8" else sc16_capture[: 600_000 * 4]
+    kw = dict(fmt=fmt, blocks_per_batch=2, k_per_block=128, use_gate=use_gate,
+              use_native=False)
+    j = JaxDemodulator(**kw)
+    want = _run(j, raw)
+    p = Demodulator(device="cpu", **kw)
+    got = _run(p, raw)
+    assert p.redispatches >= 1 and p.superblocks == 3
+    assert len(want) > 3
+    assert _key(got) == _key(want)
+    assert _stats(p.stats) == _stats(j.stats)
+    caps = ("k", "compact_l", "gate_k2", "gate_keep_l")
+    assert [getattr(p, c) for c in caps] == [getattr(j, c) for c in caps]
 
 
 def _modeac_capture() -> bytes:
@@ -413,7 +434,7 @@ def test_state_handover_magnitude_single(sc16_capture, route):
     assert _key(got) == _key(want)
     assert _stats(p.stats) == _delta(j.stats, before)
     assert p.stats_modeac == j.stats_modeac - n_ac
-    assert _filter(p.scorer.icao) == _filter(j.scorer.icao)
+    assert _filter(p.fins[0].scorer.icao) == _filter(j.scorer.icao)
     _hold_levels(p, j)
 
 
@@ -437,7 +458,7 @@ def test_state_handover_magnitude_multi():
     for c, (tw, tg) in enumerate(zip(j.flush(), p.flush())):
         assert _key(got[c] + tg) == _key(want[c] + tw), f"channel {c}"
         assert _stats(p.channel_stats(c)) == _delta(j.channel_stats(c), before[c])
-        assert _filter(p.fins[c].icao) == _filter(j.fins[c].icao)
+        assert _filter(p.fins[c].scorer.icao) == _filter(j.fins[c].icao)
 
 
 def test_state_refuses_the_other_route():
